@@ -1,21 +1,36 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
 Drives optconpy_tpu_torch (never jax) through the entry points a user
-calls, at the bench shape: cylinder wake Re=100, refinement 1 (n=4396),
-6 Wachspress shifts, 32 ADI iterations, rank 32, 6 DRE steps, one Newton
-step, dt=0.005, alpha=1e-2, 1024 scenarios x 64 closed-loop steps with
-the t=0 gain broadcast and no feedforward. Phases:
+calls. Bench shape (phases 3-6, 8): cylinder wake Re=100, refinement 1
+(n=4396), 6 Wachspress shifts, 32 ADI iterations, rank 32, 6 DRE steps,
+one Newton step, dt=0.005, alpha=1e-2, 1024 scenarios x 64 closed-loop
+steps with the t=0 gain broadcast and no feedforward. Config 3 (phases
+7, 9): cylinder wake Re=60, refinement 2 (n=15,316, n_p=2,080), dt=0.01,
+alpha=1e-4, 8 shifts, 16 ADI iterations, rank 40, 16 DRE steps, one
+Newton step, gains from the Newton-Schulz (NS) inverse stack built on
+the card. Phases:
 
   1. require a CUDA card; print its name and power limit;
-  2. build the convection kernel from optconpy_tpu_torch/csrc/;
-  3. kernel vs its plain torch version at B=1024 and B=3 (<= 1e-5), timed;
-  4. DRE gains in f32 and f64 on the card from one f64 host stack
+  2. build the kernels from optconpy_tpu_torch/csrc/ (one nvcc each);
+  3. convection kernel vs its plain torch version at B=1024 and B=3
+     (<= 1e-5), timed;
+  4. DRE gains in f32 and f64 on the card from one f64 host splu stack
      (f32-vs-f64 gain deviation <= 1e-4);
-  5. the fused closed loop through the kernel: one launch per step,
-     finite outputs, TF32 off, solves/s from warm runs;
+  5. the fused closed loop through the convection kernel: one launch per
+     step, finite outputs, TF32 off, solves/s from warm runs;
   6. in-run f64 check of 2 scenarios on the CPU with the plain versions
-     (closed-loop output deviation <= 1e-4).
+     (closed-loop output deviation <= 1e-4);
+  7. SpMM kernel vs its plain torch version on the config-3 NS pencil
+     (Atil^T, M, J, J^T) at B = 17,396, 8 and 1, f32 (<= 1e-5) and f64
+     (<= 1e-12), timed beside torch.sparse.mm and the bound;
+  8. the f32 NS stack at the bench shape's 6 shifts through the SpMM
+     kernel: per-shift deviation from phase 4's host stack, gains vs
+     phase 4's f64 gains (<= 1e-4);
+  9. config 3: the f64 NS stack certified at 1e-8 and its DRE sweep,
+     then the f32 stack at certify_tol 5e-4 and its sweep (first and
+     warm); |JZ|/|Z| <= 1e-5 and the projected DRE residual at steps 0
+     and 8 <= 1e-2 (host f64); f32-vs-f64 gain deviation reported.
 
 Every failed check raises, so the exit code is non-zero. The last three
 lines are the kernels JSON, the card's name and power limit, and
@@ -25,6 +40,7 @@ Usage: python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -51,6 +67,26 @@ KERNEL_TOL = 1e-5  # f32 kernel vs f32 plain version, relative
 GAIN_TOL = 1e-4  # f32 vs f64 gains, relative (the reference's GAINQ bound)
 ROLLOUT_TOL = 1e-4  # f32 closed-loop outputs vs the f64 recurrence
 
+# Config 3 (scripts/config3_cylinder.py:29-37, 148 of the JAX package).
+C3_RE = 60.0
+C3_REFINEMENT = 2
+C3_DT = 0.01
+C3_ALPHA = 1e-4
+C3_SHIFTS = 8
+C3_ADI = 16
+C3_R_MAX = 40
+C3_NTS = 16
+C3_CERTIFY_F64 = 1e-8
+C3_CERTIFY_F32 = 5e-4  # the reference's certify_tol
+FEAS_TOL = 1e-5  # |J Z| / |Z| of the f32 factors (the reference's bound)
+DRE_RES_TOL = 1e-2  # projected DRE step residual (the reference's bound)
+SPMM_TOL = {"float32": 1e-5, "float64": 1e-12}  # kernel vs plain, relative
+
+# Peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3 bytes/s and
+# non-tensor-core flop/s by type.
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -65,6 +101,38 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
+def sync_time(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def event_ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, flops: float, dtype: str):
+    """Least time for the work on this card and what sets it."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -72,6 +140,229 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def fingerprint(*arrays) -> str:
+    """First 12 hex digits of the sha256 of the arrays' bytes: equal
+    fingerprints in two runs mean bit-equal values."""
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:12]
+
+
+def csr_tensor(a):
+    """The same operator as a torch CSR tensor, the yardstick's input."""
+    import torch
+
+    slot = torch.arange(a.data.shape[1], device=a.device)
+    real = slot[None, :] < a.row_nnz[:, None]
+    crow = torch.cat([a.row_nnz.new_zeros(1), a.row_nnz.cumsum(0)])
+    return torch.sparse_csr_tensor(
+        crow.long(), a.cols[real].long(), a.data[real], a.shape,
+        check_invariants=True,
+    )
+
+
+def spmm_phase(c3_ops, dev):
+    """Phase 7: the SpMM kernel vs its plain version and torch.sparse.mm
+    on the config-3 NS pencil's operators. Returns the JSON fields of
+    Atil^T at the NS width in float32, and the largest absolute error."""
+    import torch
+
+    from optconpy_tpu_torch.ops import spmm_kernel
+    from optconpy_tpu_torch.solvers.ns_inverse import SaddleOpsPack
+
+    at_til = (c3_ops["A"].T - c3_ops["M"] / (2.0 * C3_DT)).tocsr()
+    gen = torch.Generator(dev).manual_seed(SEED)
+    head, max_abs = None, 0.0
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).removeprefix("torch.")
+        pack, _ = SaddleOpsPack.build(
+            at_til, c3_ops["M"], c3_ops["J"], device=dev, dtype=dtype
+        )
+        nn = pack.n + pack.n_p
+        for name in ("at", "m", "j", "jt"):
+            a = getattr(pack, name)
+            m_rows, n_cols = a.shape
+            nnz = a.nnz
+            lib_a = csr_tensor(a)
+            for b in (nn, 8, 1):
+                x = torch.randn((n_cols, b), generator=gen, dtype=dtype,
+                                device=dev)
+                y = spmm_kernel.spmm(a, x)
+                ref = spmm_kernel.spmm_plain(a, x)
+                torch.cuda.synchronize()
+                err = rel_err(y, ref)
+                abs_err = float((y - ref).abs().max())
+                check(bool(torch.isfinite(y).all()), f"spmm {name} finite")
+                check(err <= SPMM_TOL[dname],
+                      f"spmm {name} B={b} {dname}: {err:.2e}")
+                max_abs = max(max_abs, abs_err)
+                wide = b == nn
+                k_ms = event_ms(lambda: spmm_kernel.spmm(a, x), 20)
+                p_ms = event_ms(lambda: spmm_kernel.spmm_plain(a, x),
+                                3 if wide else 20)
+                l_ms = event_ms(lambda: torch.sparse.mm(lib_a, x), 20)
+                lib_err = rel_err(torch.sparse.mm(lib_a, x), ref)
+                itemsize = x.element_size()
+                bnd = bound_ms(
+                    itemsize * (n_cols + m_rows) * b
+                    + (itemsize + 4) * nnz + 4 * m_rows,
+                    2 * nnz * b, dname,
+                )
+                log(f"[7] spmm_ell {name} ({m_rows}x{n_cols}, nnz {nnz}, "
+                    f"k {a.data.shape[1]}) B={b} {dname}: rel err {err:.2e} "
+                    f"(abs {abs_err:.2e}, tol {SPMM_TOL[dname]:g}); kernel "
+                    f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.sparse.mm "
+                    f"{l_ms:.4f} ms (rel err {lib_err:.1e}); bound "
+                    f"{bnd[0]:.4f} ms ({bnd[1]}) = {bnd[0] / k_ms:.0%} of "
+                    f"the kernel's time")
+                if name == "at" and wide and dtype == torch.float32:
+                    head = {
+                        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
+                        "bound_by": bnd[1], "library_ms": l_ms,
+                        "at": f"Atil^T {m_rows}x{n_cols} (nnz {nnz}) @ "
+                              f"X {n_cols}x{b}, float32",
+                    }
+                del x, y, ref
+        del pack
+    return head, max_abs
+
+
+def bench_ns_phase(sys32, cache64, ks64, sig, sseq, iseq):
+    """Phase 8: the f32 NS stack at the bench shape's shifts, built
+    through the SpMM kernel, against phase 4's host f64 splu stack and
+    its f64 gains."""
+    import torch
+
+    from optconpy_tpu_torch.ops import spmm_kernel
+    from optconpy_tpu_torch.riccati import (
+        build_dre_cache_dae_ns,
+        dre_backward_sweep,
+    )
+
+    spmm_kernel.launches = 0
+    (cache, info), t_build = sync_time(
+        lambda: build_dre_cache_dae_ns(sys32, DT, sig)
+    )
+    launches = spmm_kernel.launches
+    check(launches >= 4 * info["ns_passes"],
+          f"spmm_ell launches in the bench NS build: {launches}")
+    devs = [
+        rel_err(cache.inv[i].double(), cache64.inv[i])
+        for i in range(len(sig))
+    ]
+    _, ks = dre_backward_sweep(
+        sys32, cache, ALPHA, DT, NTS_GAIN, sseq, iseq,
+        n_newton=N_NEWTON, r_max=R_MAX,
+    )
+    gain_dev = rel_err(ks.double(), ks64)
+    check(bool(torch.isfinite(ks).all()), "NS-stack gains finite")
+    check(gain_dev <= GAIN_TOL, f"NS-stack f32 vs f64 gains: {gain_dev:.2e}")
+    log(f"[8] bench-shape f32 NS stack ({len(sig)} shifts) {t_build:.2f} s: "
+        f"{info['ns_passes']} NS passes, {info['ladder_rungs']} rungs, "
+        f"{launches} spmm_ell launches; residuals "
+        f"{[f'{r:.2e}' for r in info['residuals']]} (certified "
+        f"{info['certified']} at {info['certify_tol']:g}); deviation from "
+        f"the host f64 splu stack per shift {[f'{d:.2e}' for d in devs]}; "
+        f"gains vs phase 4's f64 gains {gain_dev:.2e} (tol {GAIN_TOL:g})")
+
+
+def config3_phase(c3_ops, sys64, sched) -> int:
+    """Phase 9: config 3 on the NS tier. Returns the SpMM kernel's
+    launches in the f32 NS build."""
+    import torch
+
+    from optconpy_tpu_torch.ops import spmm_kernel
+    from optconpy_tpu_torch.riccati import (
+        build_dre_cache_dae_ns,
+        dre_backward_sweep,
+    )
+    from optconpy_tpu_torch.riccati.validate import dre_step_residual
+
+    sig, sseq, iseq = sched
+    sys32 = sys64.to(dtype=torch.float32)
+    adi_iters = C3_NTS * C3_ADI  # one Newton step per DRE step
+
+    def dre(sys, cache, alpha):
+        return dre_backward_sweep(
+            sys, cache, alpha, C3_DT, C3_NTS, sseq, iseq,
+            n_newton=1, r_max=C3_R_MAX,
+        )
+
+    def build(sys, tol):
+        return sync_time(lambda: build_dre_cache_dae_ns(
+            sys, C3_DT, sig, certify_tol=tol, verbose=log
+        ))
+
+    log(f"[9] config 3, f64 NS stack ({C3_SHIFTS} x {sys64.n}^2):")
+    torch.cuda.reset_peak_memory_stats()
+    (cache, info), t_build = build(sys64, C3_CERTIFY_F64)
+    res64 = info["residuals"]
+    check(all(info["certified"]),
+          f"f64 NS stack certified at {C3_CERTIFY_F64:g}: {info['residuals']}")
+    (_, ks64), t_dre = sync_time(lambda: dre(sys64, cache, C3_ALPHA))
+    log(f"    f64 build {t_build:.1f} s ({info['ns_passes']} NS passes, "
+        f"{info['ladder_rungs']} rungs, minv {info['minv_passes']} passes), "
+        f"every shift certified at {C3_CERTIFY_F64:g}; DRE sweep "
+        f"{t_dre:.2f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del cache
+    torch.cuda.empty_cache()
+
+    log(f"    f32 NS stack, certify_tol {C3_CERTIFY_F32:g}:")
+    torch.cuda.reset_peak_memory_stats()
+    spmm_kernel.launches = 0
+    (cache, info), t_build = build(sys32, C3_CERTIFY_F32)
+    launches = spmm_kernel.launches
+    check(launches >= 4 * info["ns_passes"],
+          f"spmm_ell launches in the config-3 NS build: {launches}")
+    (zs, ks), t_first = sync_time(lambda: dre(sys32, cache, C3_ALPHA))
+    warm = [
+        sync_time(lambda: dre(sys32, cache, C3_ALPHA * (1 + 1e-4 * r)))[1]
+        for r in range(1, 4)
+    ]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del cache
+    check(bool(torch.isfinite(ks).all()), "config-3 f32 gains finite")
+    feas = float(sys32.jmat.matmat(zs[0]).abs().max() / zs[0].abs().max())
+    check(feas <= FEAS_TOL, f"|JZ|/|Z| = {feas:.2e}")
+    gain_dev = rel_err(ks.double(), ks64)
+    t0 = time.perf_counter()
+    residuals = {
+        step: dre_step_residual(
+            c3_ops, zs[step].cpu().numpy(), ks[step].cpu().numpy(),
+            zs[step + 1].cpu().numpy(), C3_ALPHA, C3_DT,
+        )
+        for step in (0, C3_NTS // 2)
+    }
+    worst = max(residuals.values())
+    check(worst <= DRE_RES_TOL, f"projected DRE residual {worst:.2e}")
+    not_cert = [float(s) for s, ok in zip(sig, info["certified"]) if not ok]
+    log(f"    f32 build {t_build:.1f} s ({info['ns_passes']} NS passes, "
+        f"{info['ladder_rungs']} rungs); residuals "
+        f"{[f'{r:.2e}' for r in info['residuals']]}; certified "
+        f"{info['certified']} (shifts not certified: {not_cert}); "
+        f"spmm_ell launches {launches}")
+    log(f"    f32 DRE sweep first {t_first:.2f} s, warm "
+        f"{[round(t, 4) for t in warm]} s -> median "
+        f"{adi_iters / statistics.median(warm):.1f} ADI iters/s; peak device "
+        f"memory {peak_gb:.2f} GB")
+    ops = [c3_ops[k] for k in ("A", "M", "J")]
+    log(f"    repeat fingerprint (sha256 of the values; equal in two runs = "
+        f"bit-equal): host operators "
+        f"{fingerprint(*(x for a in ops for x in (a.data, a.indices)))}, "
+        f"B and C {fingerprint(c3_ops['B'], c3_ops['C'])}, shifts "
+        f"{fingerprint(sig)}, f64 stack residuals {fingerprint(res64)}, "
+        f"f32 stack residuals {fingerprint(info['residuals'])}, f64 gains "
+        f"{fingerprint(ks64.cpu().numpy())}, f32 gains "
+        f"{fingerprint(ks.cpu().numpy())}")
+    log(f"    |JZ|/|Z| {feas:.2e} (tol {FEAS_TOL:g}); projected DRE residual "
+        f"{ {k: f'{v:.2e}' for k, v in residuals.items()} } (tol "
+        f"{DRE_RES_TOL:g}, host f64 {time.perf_counter() - t0:.1f} s); "
+        f"f32 vs f64 gain deviation {gain_dev:.2e} (target {GAIN_TOL:g})")
+    return launches
 
 
 def main() -> None:
@@ -86,7 +377,7 @@ def main() -> None:
     from optconpy_tpu_torch.fem.device_conv import ConvKernel, FusedConvKernel
     from optconpy_tpu_torch.models.cylinder import cylinder_setup
     from optconpy_tpu_torch.mpc import batched_nse_closed_loop, build_nse_fused
-    from optconpy_tpu_torch.ops import conv_kernel
+    from optconpy_tpu_torch.ops import conv_kernel, cuda_build
     from optconpy_tpu_torch.riccati import (
         dre_backward_sweep,
         dre_shift_schedule_dae,
@@ -102,31 +393,15 @@ def main() -> None:
         f"{torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     utils.setup()
 
-    def sync_time(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    def event_ms(fn, reps: int) -> float:
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
     # --- 2. build -------------------------------------------------------
-    info = conv_kernel.build()
-    log(f"[2] kernel built from optconpy_tpu_torch/csrc/ -> "
-        f"{info.path.name} in {info.seconds:.2f} s (nvcc sm_90a)")
+    info = cuda_build.build()
+    log(f"[2] kernels built from optconpy_tpu_torch/csrc/ -> "
+        f"{info.path.name} in {info.seconds:.2f} s (nvcc sm_90a, one "
+        f"process per source, started together); each nvcc run "
+        f"{ {k: round(t, 2) for k, t in info.steps.items()} } s, "
+        f"{sum(info.steps.values()):.2f} s one after another")
     for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"    ptxas: {line.strip()}")
 
     # --- setup (host) ---------------------------------------------------
@@ -171,6 +446,12 @@ def main() -> None:
         )
         if b == S_BATCH:
             kernel_ms, plain_ms = k_ms, p_ms
+            k_s = conv.scatter_slots.shape[1]
+            conv_bound = bound_ms(
+                4 * (2 * 2 * conv.ns * b + nt * 432)
+                + 8 * (nt * 6 + conv.ns * k_s),
+                1008 * nt * b, "float32",
+            )
         log(f"[3] conv_p2 B={b}: rel err {err:.2e} (abs {abs_err:.2e}, "
             f"tol {KERNEL_TOL:g}); kernel {k_ms * 1e3:.1f} us/call, "
             f"plain {p_ms * 1e3:.1f} us/call")
@@ -215,7 +496,7 @@ def main() -> None:
         f"{[round(t, 4) for t in warm]} s -> median {adi_iters / t_warm:.1f} "
         f"ADI iters/s; f32 vs f64 gain deviation {gain_dev:.2e} "
         f"(tol {GAIN_TOL:g})")
-    del cache64, cache32
+    del cache32
 
     # --- 5. rollout -----------------------------------------------------
     t0 = time.perf_counter()
@@ -272,16 +553,59 @@ def main() -> None:
         f"{time.perf_counter() - t0:.1f} s): {roll_dev:.2e} "
         f"(tol {ROLLOUT_TOL:g})")
 
-    log(json.dumps({"kernels": [{
-        "name": "conv_p2",
-        "route": "cuda",
-        "source": "optconpy_tpu_torch/csrc/conv_p2.cu",
-        "replaces": "optconpy_tpu/ops/pallas_conv.py:74",
-        "launches": main_launches,
-        "max_abs_err": kernel_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    del fused64, fused32, conv, conv64
+    log(f"    conv_p2 bound at B={S_BATCH}: {conv_bound[0] * 1e3:.1f} us "
+        f"({conv_bound[1]})")
+
+    # --- 7. SpMM kernel vs plain on the config-3 pencil -----------------
+    t0 = time.perf_counter()
+    c3_ops, c3_sys64, _ = cylinder_setup(
+        re=C3_RE, refinement=C3_REFINEMENT, device=dev, dtype=f64
+    )
+    t_setup3 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c3_sched = dre_shift_schedule_dae(
+        c3_ops["A"], c3_ops["M"], c3_ops["J"], C3_DT,
+        num_shifts=C3_SHIFTS, n_adi=C3_ADI,
+    )
+    log(f"[7] config-3 setup {t_setup3:.1f} s: n={c3_sys64.n} "
+        f"n_p={c3_sys64.n_p} m={c3_sys64.m_in}, steady residual "
+        f"{c3_ops['steady_info']['residual']:.2e}; shifts (ARPACK interval) "
+        f"{time.perf_counter() - t0:.1f} s: {np.round(c3_sched[0], 2).tolist()}")
+    spmm_head, spmm_err = spmm_phase(c3_ops, dev)
+
+    # --- 8. NS stack at the bench shape ---------------------------------
+    bench_ns_phase(sys32, cache64, ks64, sig, sseq, iseq)
+    del cache64, sys32, sys64
+
+    # --- 9. config 3 ----------------------------------------------------
+    spmm_launches = config3_phase(c3_ops, c3_sys64, c3_sched)
+
+    log(json.dumps({"kernels": [
+        {
+            "name": "conv_p2",
+            "route": "cuda",
+            "source": "optconpy_tpu_torch/csrc/conv_p2.cu",
+            "replaces": "optconpy_tpu/ops/pallas_conv.py:74",
+            "launches": main_launches,
+            "max_abs_err": kernel_err,
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": conv_bound[0],
+            "bound_by": conv_bound[1],
+            "library_ms": None,
+            "at": f"B={S_BATCH}, n={n}, nt={nt}, float32",
+        },
+        {
+            "name": "spmm_ell",
+            "route": "cuda",
+            "source": "optconpy_tpu_torch/csrc/spmm_ell.cu",
+            "replaces": "optconpy_tpu/ops/pallas_spmm.py:197",
+            "launches": spmm_launches,
+            "max_abs_err": spmm_err,
+            **spmm_head,
+        },
+    ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

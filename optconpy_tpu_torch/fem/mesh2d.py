@@ -1,6 +1,8 @@
-"""2D triangle meshes — the Schaefer-Turek cylinder channel (host numpy).
+"""2D triangle meshes — the unit-square cavity and the Schaefer-Turek
+cylinder channel (host numpy).
 
-Graded point cloud (boundary rings around the cylinder + rectangular
+Cavity: structured crossed-diagonal triangulation of the unit square.
+Cylinder: graded point cloud (boundary rings around the cylinder + rectangular
 background + wake band) triangulated with scipy Delaunay, with
 cylinder-interior triangles removed: channel [0, 2.2] x [0, 0.41],
 cylinder center (0.2, 0.2), radius 0.05. Same math as
@@ -61,6 +63,29 @@ class TriMesh:
         return 0.5 * (
             self.vertices[self.edges[:, 0]] + self.vertices[self.edges[:, 1]]
         )
+
+
+def unit_square_mesh(nx: int) -> TriMesh:
+    """Structured crossed-diagonal triangulation of [0,1]^2, nx x nx
+    squares."""
+    x = np.linspace(0.0, 1.0, nx + 1)
+    xx, yy = np.meshgrid(x, x, indexing="ij")
+    verts = np.stack([xx.ravel(), yy.ravel()], axis=1)
+
+    def vid(i, j):
+        return i * (nx + 1) + j
+
+    tris = []
+    for i in range(nx):
+        for j in range(nx):
+            a, b = vid(i, j), vid(i + 1, j)
+            c, d = vid(i + 1, j + 1), vid(i, j + 1)
+            # Alternate the diagonal for isotropy.
+            if (i + j) % 2 == 0:
+                tris += [[a, b, c], [a, c, d]]
+            else:
+                tris += [[a, b, d], [b, c, d]]
+    return TriMesh.build(verts, np.asarray(tris))
 
 
 def cylinder_channel_mesh(

@@ -1,1 +1,1 @@
-"""models/ — problem setups (cylinder wake)."""
+"""models/ — problem setups (driven cavity, cylinder wake)."""

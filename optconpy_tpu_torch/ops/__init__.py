@@ -1,1 +1,2 @@
-"""ops/ — ELL sparse operator, low-rank algebra, the convection kernel."""
+"""ops/ — ELL sparse operator, low-rank algebra, the CUDA kernels
+(convection, SpMM) and their build."""

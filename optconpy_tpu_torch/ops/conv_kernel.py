@@ -15,30 +15,18 @@ Shared layout (no padding):
             each scalar dof, padded with the sentinel nt*6.
 
 The kernel is compiled with nvcc for sm_90a at first use, from the
-sources in csrc/ into build/ at the repository root, and bound with
-ctypes.
+sources in csrc/ into build/ at the repository root (ops/cuda_build.py),
+and bound with ctypes.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from dataclasses import dataclass
-from pathlib import Path
 
 import torch
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+from . import cuda_build
+from .cuda_build import check_tensor as _check
 
 # Kernel launches made through `conv_full_batch` (one per call on CUDA).
 launches = 0
@@ -65,54 +53,9 @@ def conv_full_batch_plain(v_full_t, t0, tri_dofs, slots, ns: int):
     return out_flat[:, slots].sum(dim=2).reshape(2 * ns, b)
 
 
-@dataclass(frozen=True)
-class BuildInfo:
-    path: Path
-    seconds: float  # 0.0 when an earlier build of these sources was reused
-    log: str  # nvcc's output (-Xptxas -v resource usage)
-
-
-def _sources() -> list[Path]:
-    return sorted(_CSRC.glob("*.cu"))
-
-
-@functools.cache
-def build() -> BuildInfo:
-    """Compile csrc/*.cu into build/ (once per source content)."""
-    srcs = _sources()
-    h = hashlib.sha256()
-    for p in srcs:
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    path = _BUILD_DIR / f"liboptconpy_kernels_{h.hexdigest()[:12]}.so"
-    if path.exists():
-        return BuildInfo(path, 0.0, "")
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    nvcc = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=_BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, srcs)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return BuildInfo(path, time.perf_counter() - t0, proc.stdout + proc.stderr)
-
-
 @functools.cache
 def _library():
-    lib = ctypes.CDLL(str(build().path))
+    lib = cuda_build.library()
     p = ctypes.c_void_p
     i64 = ctypes.c_int64
     lib.conv_p2_forward.argtypes = [p, p, p, p, p, p, i64, i64, i64, i64, p]
@@ -120,17 +63,6 @@ def _library():
     lib.conv_p2_error_string.argtypes = [ctypes.c_int]
     lib.conv_p2_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _check(name, x, dtype, shape, device):
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def conv_full_batch(v_full_t, t0, tri_dofs, slots, ns: int):

@@ -1,5 +1,6 @@
 """riccati/ — low-rank ADI, Newton-Kleinman and the DRE sweep."""
 from .dre import (
+    build_dre_cache_dae_ns,
     dre_backward_sweep,
     dre_shift_schedule_dae,
     load_or_build_inverse_stack,
@@ -8,6 +9,7 @@ from .lyap_adi import lowrank_adi
 from .newton_kleinman import gain_from_factor, newton_adi_are
 
 __all__ = [
+    "build_dre_cache_dae_ns",
     "dre_backward_sweep",
     "dre_shift_schedule_dae",
     "gain_from_factor",

@@ -107,6 +107,32 @@ def load_or_build_inverse_stack(
     return inv_np, "built"
 
 
+def build_dre_cache_dae_ns(
+    sys, dt: float, sig, certify_tol: float = 5e-4, verbose=None,
+):
+    """Dense shifted-saddle inverse cache of [[Atil^T + sigma M, J^T],
+    [J, 0]], Atil = A - M/(2 dt), built on sys's device in sys's dtype
+    by Newton-Schulz ladders (solvers/ns_inverse.py) instead of host
+    splu. Memory: len(sig) * n^2 values for the stack, plus three
+    (n + n_p)^2 working arrays during the build.
+
+    Returns (cache, info); info carries the per-shift residuals and
+    certification flags (build_inverse_stack_ns).
+    """
+    from ..ops.sparse import ell_to_scipy
+    from ..solvers.ns_inverse import build_inverse_stack_ns
+
+    m_sp = ell_to_scipy(sys.mass)
+    a_sp = ell_to_scipy(sys.stiff)
+    j_sp = ell_to_scipy(sys.jmat)
+    at_til = (a_sp.T - m_sp / (2.0 * dt)).tocsr()
+    inv_stack, info = build_inverse_stack_ns(
+        at_til, m_sp, j_sp, sig, device=sys.b.device, dtype=sys.b.dtype,
+        certify_tol=certify_tol, verbose=verbose,
+    )
+    return SaddleShiftedInverseCache(inv_stack, sys.n), info
+
+
 def dre_backward_sweep(
     sys,
     cache: SaddleShiftedInverseCache,

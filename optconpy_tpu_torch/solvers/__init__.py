@@ -1,1 +1,2 @@
-"""solvers/ — steady state (host) and shifted-saddle solves."""
+"""solvers/ — steady state (host), shifted-saddle solves and the
+Newton-Schulz inverse-stack build."""

@@ -1,0 +1,303 @@
+"""Device-built dense saddle inverse stacks via Newton-Schulz ladders.
+
+The dense ADI tier applies an explicit (n, n) velocity-block inverse per
+shifted saddle pencil [[At + s M, J^T], [J, 0]] as one GEMM
+(solvers/saddle.py SaddleShiftedInverseCache). This module builds that
+stack on the device from the sparse operators, with no host
+factorization. Counterpart of optconpy_tpu/solvers/ns_inverse.py:
+
+  1. Newton-Schulz (X <- X (2I - A X)) converges quadratically whenever
+     ||I - A X_0||_2 < 1; one pass is one sparse apply over n + n_p
+     columns (four launches of the SpMM kernel, ops/spmm_kernel.py) and
+     one dense (n + n_p)^2 GEMM (torch.matmul).
+  2. Adjacent shifted saddles differ by (s_i - s_j) M, so an inverse at
+     one shift seeds the next; a geometric ladder of synthetic shifts
+     bounds the ratio between rungs.
+  3. At a large synthetic shift s_huge the pencil is mass-dominated and
+     [[s M, J^T], [J, 0]]^-1 has a closed block form in M^-1 (itself a
+     short Newton-Schulz iteration from a scaled diagonal) and the
+     (n_p, n_p) pressure Schur inverse.
+
+Every shift's inverse is probed with random vectors: its residual and a
+pass flag (residual <= certify_tol) are returned, and a residual that is
+not finite or not below 1 (Newton-Schulz diverged) raises.
+"""
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..ops.spmm_kernel import (
+    ELLPack,
+    pack_ell,
+    rcm_permutation,
+    sort_rows_by_window,
+    spmm,
+)
+
+# The reference's ladder constants (optconpy_tpu/solvers/ns_inverse.py).
+RUNG_RATIO = 1.6  # largest |s| ratio between neighbouring rungs
+PASSES_PER_RUNG = 3
+EXTRA_PASSES_AT_SHIFT = 1
+MAX_CERTIFY_PASSES = 6  # further passes while a shift misses certify_tol
+MINV_TOL = 1e-2
+MAX_MINV_PASSES = 30
+SEED_TOL = 0.3
+MAX_SEED_PASSES = 12
+POWER_ITERS = 24
+N_PROBES = 8
+SEED = 17
+
+
+@dataclass(frozen=True)
+class SaddleOpsPack:
+    """Sparse device packs of one saddle pencil family
+    [[At + s M, J^T], [J, 0]] in an RCM velocity ordering (pressure rows
+    sorted by their first velocity column)."""
+
+    at: ELLPack
+    m: ELLPack
+    j: ELLPack
+    jt: ELLPack
+    m_diag: torch.Tensor  # (n,)
+    n: int
+    n_p: int
+
+    @staticmethod
+    def build(at_sp, m_sp, j_sp, *, device, dtype):
+        """Host-side packing (scipy); returns (pack, perm), perm the
+        velocity ordering (pack rows = original rows[perm])."""
+        import scipy.sparse as sp
+
+        at = sp.csr_matrix(at_sp)
+        m = sp.csr_matrix(m_sp)
+        j = sp.csr_matrix(j_sp)
+        perm = rcm_permutation(m, at)
+        at_r = at[perm][:, perm].tocsr()
+        m_r = m[perm][:, perm].tocsr()
+        j_c = j[:, perm].tocsr()
+        j_r = j_c[sort_rows_by_window(j_c)].tocsr()
+
+        def pack(a):
+            return pack_ell(a, device=device, dtype=dtype)
+
+        ops = SaddleOpsPack(
+            at=pack(at_r),
+            m=pack(m_r),
+            j=pack(j_r),
+            jt=pack(j_r.T.tocsr()),
+            m_diag=torch.as_tensor(m_r.diagonal()).to(device, dtype),
+            n=at.shape[0],
+            n_p=j.shape[0],
+        )
+        return ops, perm
+
+
+def _apply_big(pack: SaddleOpsPack, s: float, x):
+    """[[At + s M, J^T], [J, 0]] @ X for X (n + n_p, q)."""
+    n = pack.n
+    xv, xp = x[:n], x[n:]
+    out = torch.empty_like(x)
+    top = out[:n]
+    torch.add(spmm(pack.at, xv), spmm(pack.m, xv), alpha=s, out=top)
+    top += spmm(pack.jt, xp)
+    out[n:] = spmm(pack.j, xv)
+    return out
+
+
+def _ns_pass_saddle(pack: SaddleOpsPack, s: float, x):
+    """One Newton-Schulz pass against the exact sparse pencil:
+    X <- 2X - X (A(s) X)."""
+    return torch.addmm(x, x, _apply_big(pack, s, x), beta=2.0, alpha=-1.0)
+
+
+def _max_rel_norm(r, v) -> float:
+    return float((r.norm(dim=0) / v.norm(dim=0)).max())
+
+
+def _probes(rows: int, like, gen):
+    return torch.randn((rows, N_PROBES), generator=gen, dtype=like.dtype,
+                       device=like.device)
+
+
+def _residual_probe(pack: SaddleOpsPack, s: float, x, gen) -> float:
+    """max over random probes v of ||v - A(s) (X v)|| / ||v||."""
+    v = _probes(x.shape[0], x, gen)
+    return _max_rel_norm(v - _apply_big(pack, s, x @ v), v)
+
+
+def _power_iteration(op, v) -> float:
+    """lambda_max of a linear map by POWER_ITERS power steps."""
+    lam = v.new_ones(())
+    for _ in range(POWER_ITERS):
+        w = op(v)
+        lam = w.norm()
+        v = w / lam.clamp_min(1e-30)
+    return float(lam)
+
+
+def _minv_ns_pass(pack: SaddleOpsPack, x):
+    """X <- 2X - X (M X): Newton-Schulz for the SPD mass inverse."""
+    return torch.addmm(x, x, spmm(pack.m, x), beta=2.0, alpha=-1.0)
+
+
+def _minv_residual(pack: SaddleOpsPack, x, gen) -> float:
+    v = _probes(pack.n, x, gen)
+    return _max_rel_norm(v - spmm(pack.m, x @ v), v)
+
+
+def _seed_block_inverse(pack: SaddleOpsPack, minv, jm, sp_inv, s_huge):
+    """Closed-form [[s M, J^T], [J, 0]]^-1 from M^-1, jm = J M^-1 and the
+    pressure Schur inverse S_p^-1 = (J M^-1 J^T)^-1:
+
+      X_vv = (1/s)(M^-1 - M^-1 J^T S_p^-1 J M^-1)
+      X_vp = M^-1 J^T S_p^-1,  X_pv = S_p^-1 J M^-1,  X_pp = -s S_p^-1
+    """
+    n = pack.n
+    mjt = jm.T  # M^-1 J^T (M^-1 symmetric to Newton-Schulz accuracy)
+    nn = n + pack.n_p
+    x = torch.empty((nn, nn), dtype=minv.dtype, device=minv.device)
+    x[:n, :n] = (minv - mjt @ (sp_inv @ jm)) / s_huge
+    x[:n, n:] = mjt @ sp_inv
+    x[n:, :n] = sp_inv @ jm
+    x[n:, n:] = -s_huge * sp_inv
+    return x
+
+
+def _rungs_between(s_from: float, s_to: float) -> list[float]:
+    """Geometric rungs from s_from down to s_to (same sign, |s|
+    decreasing) with ratio <= RUNG_RATIO, ending at s_to."""
+    out = []
+    cur = s_from
+    while abs(cur) / abs(s_to) > RUNG_RATIO:
+        cur = cur / RUNG_RATIO
+        out.append(cur)
+    out.append(s_to)
+    return out
+
+
+def build_inverse_stack_ns(
+    at_sp, m_sp, j_sp, sig, *, device, dtype, certify_tol: float = 5e-4,
+    verbose=None,
+):
+    """Build the (J, n, n) shifted-saddle velocity-block inverse stack on
+    `device` in `dtype`. Same output contract as
+    SaddleShiftedInverseCache.build_sparse_host (original dof order).
+
+    Returns (inv_stack, info): info["residuals"][i] is shift i's probed
+    residual and info["certified"][i] whether it is <= certify_tol;
+    also the ladder's counts and the build time in seconds. Raises if
+    a residual is not finite or >= 1 (Newton-Schulz diverged).
+    """
+    log = verbose or (lambda *_: None)
+    t_all = time.perf_counter()
+    pack, perm = SaddleOpsPack.build(
+        at_sp, m_sp, j_sp, device=device, dtype=dtype
+    )
+    n, n_p = pack.n, pack.n_p
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    ns_passes = 0
+
+    # --- 1. M^-1 by Newton-Schulz from a scaled-diagonal seed ---
+    v0 = torch.randn((n, 1), generator=gen, dtype=dtype, device=device)
+    lam_dm = _power_iteration(
+        lambda v: spmm(pack.m, v) / pack.m_diag[:, None], v0
+    )
+    minv = torch.diag((1.0 / lam_dm) / pack.m_diag)
+    minv_passes = 0
+    res_m = _minv_residual(pack, minv, gen)
+    while res_m > MINV_TOL and minv_passes < MAX_MINV_PASSES:
+        minv = _minv_ns_pass(pack, minv)
+        minv_passes += 1
+        if minv_passes % 4 == 0 or minv_passes > 20:
+            res_m = _minv_residual(pack, minv, gen)
+    log(f"  minv: lam_max(D^-1 M)={lam_dm:.2f}, {minv_passes} passes, "
+        f"residual {res_m:.1e}")
+
+    # --- 2. pressure Schur inverse (n_p x n_p dense, inverted in f64) ---
+    eye_p = torch.eye(n_p, dtype=dtype, device=device)
+    jm = spmm(pack.j, minv)  # (n_p, n) = J M^-1
+    schur = jm @ spmm(pack.jt, eye_p)
+    sp_inv = torch.linalg.inv(schur.double()).to(dtype)
+    del eye_p, schur
+
+    # --- 3. mass-dominated synthetic seed ---
+    sig_np = np.asarray(sig, np.float64)
+    order = np.argsort(-np.abs(sig_np))
+    s_sorted = sig_np[order]
+    v0 = torch.randn((n, 1), generator=gen, dtype=dtype, device=device)
+    lam_p = _power_iteration(lambda v: minv @ spmm(pack.at, v), v0)
+    sign = float(np.sign(s_sorted[0]) or 1.0)
+    s_huge = sign * max(10.0 * lam_p, 10.0 * abs(s_sorted[0]))
+    x = _seed_block_inverse(pack, minv, jm, sp_inv, s_huge)
+    del minv, jm, sp_inv
+    r_seed = _residual_probe(pack, s_huge, x, gen)
+    # Seed refinement at s_huge itself (fixes the approximate M^-1).
+    seed_passes = 0
+    while r_seed > SEED_TOL and seed_passes < MAX_SEED_PASSES:
+        x = _ns_pass_saddle(pack, s_huge, x)
+        seed_passes += 1
+        r_seed = _residual_probe(pack, s_huge, x, gen)
+    ns_passes += seed_passes
+    log(f"  seed: s_huge={s_huge:.3e} (|M^-1 At| ~ {lam_p:.2e}), "
+        f"{seed_passes} refine passes, residual {r_seed:.2e}")
+
+    # --- 4. geometric ladder s_huge -> shifts, NS at every rung ---
+    inv_stack = torch.empty((len(sig_np), n, n), dtype=dtype, device=device)
+    iperm = torch.as_tensor(np.argsort(perm)).to(device)
+    residuals = [None] * len(sig_np)
+    certified = [None] * len(sig_np)
+    extras = [None] * len(sig_np)
+    s_cur = s_huge
+    n_rungs = 0
+    for pos, s_target in zip(order, s_sorted):
+        s_target = float(s_target)
+        for s_r in _rungs_between(s_cur, s_target):
+            for _ in range(PASSES_PER_RUNG):
+                x = _ns_pass_saddle(pack, s_r, x)
+            ns_passes += PASSES_PER_RUNG
+            n_rungs += 1
+            s_cur = s_r
+        for _ in range(EXTRA_PASSES_AT_SHIFT):
+            x = _ns_pass_saddle(pack, s_target, x)
+        ns_passes += EXTRA_PASSES_AT_SHIFT
+        res = _residual_probe(pack, s_target, x, gen)
+        extra = 0
+        while res > certify_tol and extra < MAX_CERTIFY_PASSES:
+            x = _ns_pass_saddle(pack, s_target, x)
+            extra += 1
+            res = _residual_probe(pack, s_target, x, gen)
+        ns_passes += extra
+        if not math.isfinite(res) or res >= 1.0:
+            raise RuntimeError(
+                f"Newton-Schulz diverged at shift {s_target:.4e}: "
+                f"residual {res:.3e}"
+            )
+        residuals[pos] = res
+        certified[pos] = res <= certify_tol
+        extras[pos] = extra
+        # velocity block, back in the original dof order
+        inv_stack[pos] = x[iperm[:, None], iperm]
+        flag = "certified" if certified[pos] else "NOT certified"
+        log(f"  shift {s_target:12.2f}: residual {res:.2e} "
+            f"(+{extra} extra passes, {flag})")
+    if inv_stack.is_cuda:
+        torch.cuda.synchronize(inv_stack.device)
+    info = {
+        "residuals": residuals,
+        "certified": certified,
+        "certify_tol": certify_tol,
+        "extra_passes": extras,
+        "s_huge": s_huge,
+        "seed_residual": r_seed,
+        "minv_passes": minv_passes,
+        "minv_residual": res_m,
+        "ladder_rungs": n_rungs,
+        "ns_passes": ns_passes,
+        "build_s": time.perf_counter() - t_all,
+    }
+    return inv_stack, info

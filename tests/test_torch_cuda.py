@@ -1,15 +1,20 @@
-"""The hand-written CUDA convection kernel (csrc/conv_p2.cu) on the card.
+"""The hand-written CUDA kernels (csrc/conv_p2.cu, csrc/spmm_ell.cu) on
+the card.
 
-The kernel has no CPU mode, so every test here is marked `cuda` and
+The kernels have no CPU mode, so every test here is marked `cuda` and
 skips without a card. This file imports only the port (no jax), so it
 also runs on a machine without the reference installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Inputs are the cylinder wake's element tensor and maps (Re=100,
-refinement 1) at the batch widths the main path uses; the kernel must
-match the plain torch version to 1e-5 relative in float32.
+Inputs come from the cylinder wake (Re=100, refinement 1): the
+convection kernel's element tensor and maps at the batch widths of the
+rollout, and the NS pencil's operators (Atil^T, M, J, J^T in RCM order)
+at the widths of the NS build. Each kernel must match its plain torch
+version to 1e-5 relative in float32 (and the SpMM to 1e-12 in float64).
 """
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -17,7 +22,18 @@ import torch
 from optconpy_tpu_torch import interop
 from optconpy_tpu_torch.fem.device_conv import ConvKernel, FusedConvKernel
 from optconpy_tpu_torch.models.cylinder import cylinder_setup
-from optconpy_tpu_torch.ops import conv_kernel
+from optconpy_tpu_torch.ops import conv_kernel, spmm_kernel
+from optconpy_tpu_torch.fem.dae import dae_from_scipy
+from optconpy_tpu_torch.riccati import (
+    build_dre_cache_dae_ns,
+    dre_backward_sweep,
+    dre_shift_schedule_dae,
+    load_or_build_inverse_stack,
+)
+from optconpy_tpu_torch.solvers.ns_inverse import (
+    SaddleOpsPack,
+    build_inverse_stack_ns,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -26,16 +42,41 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
+DT = 0.005
+CPU = torch.device("cpu")
+
+
 @pytest.fixture(scope="module")
-def card():
+def cylinder():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    dev = torch.device("cuda", 0)
-    np_ops, _, cond = cylinder_setup(
-        re=100.0, refinement=1, device=torch.device("cpu")
-    )
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    np_ops, _, cond = cylinder_setup(re=100.0, refinement=1, device=CPU)
+    return torch.device("cuda", 0), np_ops, cond
+
+
+@pytest.fixture(scope="module")
+def card(cylinder):
+    dev, np_ops, cond = cylinder
     fused = FusedConvKernel.build(np_ops["full"], cond, device=dev)
     return dev, fused, np_ops["vbar_full"]
+
+
+def _at_til(np_ops):
+    return (np_ops["A"].T - np_ops["M"] / (2.0 * DT)).tocsr()
+
+
+@pytest.fixture(scope="module")
+def pencil(cylinder):
+    """The NS pack's operators on the card, in float32 and float64."""
+    dev, np_ops, _ = cylinder
+    packs = {
+        dtype: SaddleOpsPack.build(
+            _at_til(np_ops), np_ops["M"], np_ops["J"], device=dev,
+            dtype=dtype,
+        )[0]
+        for dtype in (torch.float32, torch.float64)
+    }
+    return dev, np_ops, packs
 
 
 @pytest.mark.parametrize("b", [1, 3, 1024])
@@ -94,3 +135,102 @@ def test_wrapper_refuses_bad_inputs(card):
         )
     with pytest.raises(TypeError, match="float32"):
         fused.to(dtype=torch.float64)
+
+
+@pytest.mark.parametrize("dtype, tol", [
+    (torch.float32, 1e-5), (torch.float64, 1e-12),
+])
+@pytest.mark.parametrize("b", [1, 8, 5037])
+@pytest.mark.parametrize("name", ["at", "m", "j", "jt"])
+def test_spmm_matches_plain(pencil, name, b, dtype, tol):
+    dev, _, packs = pencil
+    a = getattr(packs[dtype], name)
+    rng = np.random.default_rng(b)
+    x = torch.as_tensor(
+        rng.standard_normal((a.shape[1], b)), dtype=dtype
+    ).to(dev)
+    before = spmm_kernel.launches
+    got = spmm_kernel.spmm(a, x)
+    plain = spmm_kernel.spmm_plain(a, x)
+    torch.cuda.synchronize()
+    assert spmm_kernel.launches == before + 1
+    assert got.shape == (a.shape[0], b) and got.dtype == dtype
+    assert _rel(got, plain) <= tol
+
+
+def test_spmm_is_deterministic(pencil):
+    dev, _, packs = pencil
+    a = packs[torch.float32].at
+    x = torch.randn((a.shape[1], 300), device=dev,
+                    generator=torch.Generator(dev).manual_seed(1))
+    before = spmm_kernel.launches
+    assert torch.equal(spmm_kernel.spmm(a, x), spmm_kernel.spmm(a, x))
+    assert spmm_kernel.launches == before + 2
+
+
+def test_spmm_refuses_bad_inputs(pencil):
+    dev, _, packs = pencil
+    a = packs[torch.float32].m
+    n = a.shape[1]
+    with pytest.raises(TypeError, match="dtype"):
+        spmm_kernel.spmm(a, torch.zeros((n, 4), dtype=torch.float64,
+                                        device=dev))
+    with pytest.raises(TypeError, match="float32 or float64"):
+        spmm_kernel.spmm(replace(a, data=a.data.half()),
+                         torch.zeros((n, 4), dtype=torch.float16, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        spmm_kernel.spmm(a, torch.zeros((4, n), device=dev).T)
+    with pytest.raises(ValueError, match="shape"):
+        spmm_kernel.spmm(a, torch.zeros((n + 1, 4), device=dev))
+    with pytest.raises(ValueError, match="n, B"):
+        spmm_kernel.spmm(a, torch.zeros((n,), device=dev))
+    with pytest.raises(ValueError, match="is on"):
+        spmm_kernel.spmm(replace(a, data=a.data.cpu()),
+                         torch.zeros((n, 4), device=dev))
+
+
+def test_ns_stack_on_card_matches_host_splu(cylinder):
+    """A 2-shift f64 NS stack built through the kernel on the card vs the
+    host splu stack, to 1e-6 (tests/test_ns_inverse.py's bound)."""
+    dev, np_ops, _ = cylinder
+    sig, _, _ = dre_shift_schedule_dae(
+        np_ops["A"], np_ops["M"], np_ops["J"], DT, num_shifts=2, n_adi=2
+    )
+    at = _at_til(np_ops)
+    before = spmm_kernel.launches
+    inv, info = build_inverse_stack_ns(
+        at, np_ops["M"], np_ops["J"], sig, device=dev, dtype=torch.float64,
+        certify_tol=1e-8,
+    )
+    assert spmm_kernel.launches - before >= 4 * info["ns_passes"]
+    assert info["certified"] == [True, True], info["residuals"]
+    ref, _ = load_or_build_inverse_stack(
+        at, np_ops["M"], np_ops["J"], sig, np.float64
+    )
+    for i in range(2):
+        assert _rel(inv[i], torch.as_tensor(ref[i]).to(dev)) <= 1e-6, i
+
+
+def test_ns_stack_and_gains_repeat_bit_for_bit(cylinder):
+    """Two f32 NS builds of one 2-shift stack, and the DRE gains from
+    each, are equal bit for bit within one process."""
+    dev, np_ops, _ = cylinder
+    sig, sseq, iseq = dre_shift_schedule_dae(
+        np_ops["A"], np_ops["M"], np_ops["J"], DT, num_shifts=2, n_adi=2
+    )
+    sys32 = dae_from_scipy(
+        np_ops["M"], np_ops["A"], np_ops["J"], np_ops["B"], np_ops["C"],
+        device=dev, dtype=torch.float32,
+    )
+
+    def run():
+        cache, info = build_dre_cache_dae_ns(sys32, DT, sig)
+        _, ks = dre_backward_sweep(sys32, cache, 1e-2, DT, 2, sseq, iseq,
+                                   n_newton=1, r_max=8)
+        return cache.inv, info["residuals"], ks
+
+    inv_a, res_a, ks_a = run()
+    inv_b, res_b, ks_b = run()
+    assert res_a == res_b
+    assert torch.equal(inv_a, inv_b)
+    assert torch.equal(ks_a, ks_b)
