@@ -13,24 +13,30 @@ the card. Phases:
 
   1. require a CUDA card; print its name and power limit;
   2. build the kernels from optconpy_tpu_torch/csrc/ (one nvcc each);
-  3. convection kernel vs its plain torch version at B=1024 and B=3
-     (<= 1e-5), timed;
+  3. convection kernel on the free-dof contract (n_free, B) vs its
+     plain torch version at B=1024 and B=3 (<= 1e-5), timed beside the
+     bound and the replaced kernel's time;
   4. DRE gains in f32 and f64 on the card from one f64 host splu stack
      (f32-vs-f64 gain deviation <= 1e-4);
   5. the fused closed loop through the convection kernel: one launch per
-     step, finite outputs, TF32 off, solves/s from warm runs;
+     step, finite outputs, TF32 off, solves/s from warm runs; a
+     torch.profiler listing of one step (one convection kernel, no
+     index_put, gather or copy beside it) and the kernel split of a warm
+     rollout;
   6. in-run f64 check of 2 scenarios on the CPU with the plain versions
      (closed-loop output deviation <= 1e-4);
   7. SpMM kernel vs its plain torch version on the config-3 NS pencil
      (Atil^T, M, J, J^T) at B = 17,396, 8 and 1, f32 (<= 1e-5) and f64
-     (<= 1e-12), timed beside torch.sparse.mm and the bound;
+     (<= 1e-12), timed beside torch.sparse.mm, the bound and the
+     replaced kernel's time;
   8. the f32 NS stack at the bench shape's 6 shifts through the SpMM
      kernel: per-shift deviation from phase 4's host stack, gains vs
      phase 4's f64 gains (<= 1e-4);
   9. config 3: the f64 NS stack certified at 1e-8 and its DRE sweep,
-     then the f32 stack at certify_tol 5e-4 and its sweep (first and
-     warm); |JZ|/|Z| <= 1e-5 and the projected DRE residual at steps 0
-     and 8 <= 1e-2 (host f64); f32-vs-f64 gain deviation reported.
+     then the f32 stack at certify_tol 5e-4 (each shift's probe
+     evaluated in f32 and in f64; the f64 one certifies) and its sweep
+     (first and warm); |JZ|/|Z| <= 1e-5 and the projected DRE residual at
+     steps 0 and 8 <= 1e-2 (host f64); f32-vs-f64 gain deviation <= 1e-4.
 
 Every failed check raises, so the exit code is non-zero. The last three
 lines are the kernels JSON, the card's name and power limit, and
@@ -81,6 +87,19 @@ C3_CERTIFY_F32 = 5e-4  # the reference's certify_tol
 FEAS_TOL = 1e-5  # |J Z| / |Z| of the f32 factors (the reference's bound)
 DRE_RES_TOL = 1e-2  # projected DRE step residual (the reference's bound)
 SPMM_TOL = {"float32": 1e-5, "float64": 1e-12}  # kernel vs plain, relative
+
+# Times of the kernels this port replaced, on an NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md), printed beside this run's: the first convection kernel
+# at B=1024 (us) and the row-ELL SpMM at B = 17,396 (ms), and the host
+# setup times with the native element library.
+EARLIER_CONV_US = 106.3
+EARLIER_SPMM_MS = {
+    ("at", "float32"): 3.4616, ("m", "float32"): 2.0242,
+    ("j", "float32"): 1.0503, ("jt", "float32"): 1.0580,
+    ("at", "float64"): 5.7508, ("m", "float64"): 2.8947,
+    ("j", "float64"): 2.8446, ("jt", "float64"): 1.1309,
+}
+EARLIER_SETUP_S = {"bench": 3.2, "config 3": 9.0}
 
 # Peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3 bytes/s and
 # non-tensor-core flop/s by type.
@@ -133,6 +152,28 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def kernel_split(fn):
+    """Run fn once under torch.profiler. Returns {kernel name: [calls,
+    device us]} for the device activity it traced and the wall seconds
+    of the window (fn ends in a synchronize)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            row = rows.setdefault(e.name, [0, 0.0])
+            row[0] += 1
+            row[1] += e.time_range.elapsed_us()
+    return rows, wall
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -151,17 +192,26 @@ def fingerprint(*arrays) -> str:
     return h.hexdigest()[:12]
 
 
-def csr_tensor(a):
-    """The same operator as a torch CSR tensor, the yardstick's input."""
+def pack_csr(a):
+    """The pack's operator as a torch CSR tensor on its device, the
+    yardstick's input: the entries it stores, without the zeros that pad
+    each group to the union of its columns."""
     import torch
 
-    slot = torch.arange(a.data.shape[1], device=a.device)
-    real = slot[None, :] < a.row_nnz[:, None]
-    crow = torch.cat([a.row_nnz.new_zeros(1), a.row_nnz.cumsum(0)])
-    return torch.sparse_csr_tensor(
-        crow.long(), a.cols[real].long(), a.data[real], a.shape,
+    from optconpy_tpu_torch.ops.spmm_kernel import GROUP
+
+    counts = (a.eptr[1:] - a.eptr[:-1]).long()
+    group = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=a.device), counts
+    )
+    rows = group[:, None] * GROUP + torch.arange(GROUP, device=a.device)
+    cols = a.ecol.long()[:, None].expand(-1, GROUP)
+    keep = a.evals != 0
+    coo = torch.sparse_coo_tensor(
+        torch.stack([rows[keep], cols[keep]]), a.evals[keep], a.shape,
         check_invariants=True,
     )
+    return coo.coalesce().to_sparse_csr()
 
 
 def spmm_phase(c3_ops, dev):
@@ -175,6 +225,7 @@ def spmm_phase(c3_ops, dev):
 
     at_til = (c3_ops["A"].T - c3_ops["M"] / (2.0 * C3_DT)).tocsr()
     gen = torch.Generator(dev).manual_seed(SEED)
+    props = torch.cuda.get_device_properties(dev)
     head, max_abs = None, 0.0
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).removeprefix("torch.")
@@ -186,7 +237,7 @@ def spmm_phase(c3_ops, dev):
             a = getattr(pack, name)
             m_rows, n_cols = a.shape
             nnz = a.nnz
-            lib_a = csr_tensor(a)
+            lib_a = pack_csr(a)
             for b in (nn, 8, 1):
                 x = torch.randn((n_cols, b), generator=gen, dtype=dtype,
                                 device=dev)
@@ -198,6 +249,8 @@ def spmm_phase(c3_ops, dev):
                 check(bool(torch.isfinite(y).all()), f"spmm {name} finite")
                 check(err <= SPMM_TOL[dname],
                       f"spmm {name} B={b} {dname}: {err:.2e}")
+                check(torch.equal(y, spmm_kernel.spmm(a, x)),
+                      f"spmm {name} B={b} {dname} repeats bit for bit")
                 max_abs = max(max_abs, abs_err)
                 wide = b == nn
                 k_ms = event_ms(lambda: spmm_kernel.spmm(a, x), 20)
@@ -205,19 +258,30 @@ def spmm_phase(c3_ops, dev):
                                 3 if wide else 20)
                 l_ms = event_ms(lambda: torch.sparse.mm(lib_a, x), 20)
                 lib_err = rel_err(torch.sparse.mm(lib_a, x), ref)
+                check(lib_err <= SPMM_TOL[dname],
+                      f"torch.sparse.mm {name} B={b} {dname}: {lib_err:.2e}")
                 itemsize = x.element_size()
                 bnd = bound_ms(
                     itemsize * (n_cols + m_rows) * b
                     + (itemsize + 4) * nnz + 4 * m_rows,
                     2 * nnz * b, dname,
                 )
-                log(f"[7] spmm_ell {name} ({m_rows}x{n_cols}, nnz {nnz}, "
-                    f"k {a.data.shape[1]}) B={b} {dname}: rel err {err:.2e} "
+                earlier = (f"; replaced kernel "
+                           f"{EARLIER_SPMM_MS[(name, dname)]:.4f} ms"
+                           if wide else "")
+                cpt = spmm_kernel.columns_per_lane(
+                    a.eptr.shape[0] - 1, n_cols, b, x.element_size(),
+                    x.data_ptr(), props.multi_processor_count,
+                    props.L2_cache_size,
+                )
+                log(f"[7] spmm_tile {name} ({m_rows}x{n_cols}, nnz {nnz}, "
+                    f"{cpt} columns a lane, {a.smem_bytes} B shared) "
+                    f"B={b} {dname}: rel err {err:.2e} "
                     f"(abs {abs_err:.2e}, tol {SPMM_TOL[dname]:g}); kernel "
                     f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.sparse.mm "
                     f"{l_ms:.4f} ms (rel err {lib_err:.1e}); bound "
                     f"{bnd[0]:.4f} ms ({bnd[1]}) = {bnd[0] / k_ms:.0%} of "
-                    f"the kernel's time")
+                    f"the kernel's time{earlier}")
                 if name == "at" and wide and dtype == torch.float32:
                     head = {
                         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
@@ -248,7 +312,7 @@ def bench_ns_phase(sys32, cache64, ks64, sig, sseq, iseq):
     )
     launches = spmm_kernel.launches
     check(launches >= 4 * info["ns_passes"],
-          f"spmm_ell launches in the bench NS build: {launches}")
+          f"spmm_tile launches in the bench NS build: {launches}")
     devs = [
         rel_err(cache.inv[i].double(), cache64.inv[i])
         for i in range(len(sig))
@@ -262,8 +326,9 @@ def bench_ns_phase(sys32, cache64, ks64, sig, sseq, iseq):
     check(gain_dev <= GAIN_TOL, f"NS-stack f32 vs f64 gains: {gain_dev:.2e}")
     log(f"[8] bench-shape f32 NS stack ({len(sig)} shifts) {t_build:.2f} s: "
         f"{info['ns_passes']} NS passes, {info['ladder_rungs']} rungs, "
-        f"{launches} spmm_ell launches; residuals "
-        f"{[f'{r:.2e}' for r in info['residuals']]} (certified "
+        f"{launches} spmm_tile launches; residuals (f64-evaluated) "
+        f"{[f'{r:.2e}' for r in info['residuals']]}, f32-evaluated "
+        f"{[f'{r:.2e}' for r in info['residuals_working']]} (certified "
         f"{info['certified']} at {info['certify_tol']:g}); deviation from "
         f"the host f64 splu stack per shift {[f'{d:.2e}' for d in devs]}; "
         f"gains vs phase 4's f64 gains {gain_dev:.2e} (tol {GAIN_TOL:g})")
@@ -317,7 +382,7 @@ def config3_phase(c3_ops, sys64, sched) -> int:
     (cache, info), t_build = build(sys32, C3_CERTIFY_F32)
     launches = spmm_kernel.launches
     check(launches >= 4 * info["ns_passes"],
-          f"spmm_ell launches in the config-3 NS build: {launches}")
+          f"spmm_tile launches in the config-3 NS build: {launches}")
     (zs, ks), t_first = sync_time(lambda: dre(sys32, cache, C3_ALPHA))
     warm = [
         sync_time(lambda: dre(sys32, cache, C3_ALPHA * (1 + 1e-4 * r)))[1]
@@ -329,6 +394,7 @@ def config3_phase(c3_ops, sys64, sched) -> int:
     feas = float(sys32.jmat.matmat(zs[0]).abs().max() / zs[0].abs().max())
     check(feas <= FEAS_TOL, f"|JZ|/|Z| = {feas:.2e}")
     gain_dev = rel_err(ks.double(), ks64)
+    check(gain_dev <= GAIN_TOL, f"config-3 f32 vs f64 gains: {gain_dev:.2e}")
     t0 = time.perf_counter()
     residuals = {
         step: dre_step_residual(
@@ -341,10 +407,13 @@ def config3_phase(c3_ops, sys64, sched) -> int:
     check(worst <= DRE_RES_TOL, f"projected DRE residual {worst:.2e}")
     not_cert = [float(s) for s, ok in zip(sig, info["certified"]) if not ok]
     log(f"    f32 build {t_build:.1f} s ({info['ns_passes']} NS passes, "
-        f"{info['ladder_rungs']} rungs); residuals "
-        f"{[f'{r:.2e}' for r in info['residuals']]}; certified "
+        f"{info['ladder_rungs']} rungs, extra passes "
+        f"{info['extra_passes']}); residuals evaluated in f64 "
+        f"{[f'{r:.2e}' for r in info['residuals']]}, the same probes "
+        f"evaluated in f32 "
+        f"{[f'{r:.2e}' for r in info['residuals_working']]}; certified "
         f"{info['certified']} (shifts not certified: {not_cert}); "
-        f"spmm_ell launches {launches}")
+        f"spmm_tile launches {launches}")
     log(f"    f32 DRE sweep first {t_first:.2f} s, warm "
         f"{[round(t, 4) for t in warm]} s -> median "
         f"{adi_iters / statistics.median(warm):.1f} ADI iters/s; peak device "
@@ -355,13 +424,14 @@ def config3_phase(c3_ops, sys64, sched) -> int:
         f"{fingerprint(*(x for a in ops for x in (a.data, a.indices)))}, "
         f"B and C {fingerprint(c3_ops['B'], c3_ops['C'])}, shifts "
         f"{fingerprint(sig)}, f64 stack residuals {fingerprint(res64)}, "
-        f"f32 stack residuals {fingerprint(info['residuals'])}, f64 gains "
+        f"f32 stack residuals {fingerprint(info['residuals'])} (f32-evaluated "
+        f"{fingerprint(info['residuals_working'])}), f64 gains "
         f"{fingerprint(ks64.cpu().numpy())}, f32 gains "
         f"{fingerprint(ks.cpu().numpy())}")
     log(f"    |JZ|/|Z| {feas:.2e} (tol {FEAS_TOL:g}); projected DRE residual "
         f"{ {k: f'{v:.2e}' for k, v in residuals.items()} } (tol "
         f"{DRE_RES_TOL:g}, host f64 {time.perf_counter() - t0:.1f} s); "
-        f"f32 vs f64 gain deviation {gain_dev:.2e} (target {GAIN_TOL:g})")
+        f"f32 vs f64 gain deviation {gain_dev:.2e} (tol {GAIN_TOL:g})")
     return launches
 
 
@@ -413,48 +483,62 @@ def main() -> None:
     conv = FusedConvKernel.build(np_ops["full"], cond, device=dev)
     n, m = sys64.b.shape
     nt = conv.tri_dofs.shape[0]
-    log(f"    setup {time.perf_counter() - t0:.1f} s: n={n} n_p={sys64.n_p} "
-        f"m={m} nt={nt} ns={conv.ns} k_s={conv.scatter_slots.shape[1]} "
-        f"steady residual {np_ops['steady_info']['residual']:.2e}")
+    plan = conv.plan
+    log(f"    setup {time.perf_counter() - t0:.1f} s (numpy element "
+        f"matrices; {EARLIER_SETUP_S['bench']} s with the native element "
+        f"library): n={n} n_p={sys64.n_p} m={m} nt={nt} ns={conv.ns}; "
+        f"convection plan: {plan.pelem.shape[0]} patches, "
+        f"{plan.bdst.shape[0]} dofs shared between patches; steady "
+        f"residual {np_ops['steady_info']['residual']:.2e}")
 
     # --- 3. kernel vs plain ---------------------------------------------
     rng = np.random.default_rng(SEED)
-    vbar_full = np_ops["vbar_full"]
-    kernel_err, kernel_ms, plain_ms = 0.0, None, None
+    vbar = torch.as_tensor(np_ops["vbar_full"], dtype=f32)[conv.free.cpu()]
+    kernel_err, kernel_ms, kernel_dev_ms, plain_ms = 0.0, None, None, None
+    plan_bytes = sum(
+        t.numel() * t.element_size()
+        for t in (plan.vsrc, plan.vdir, plan.pelem, plan.pnd, plan.psptr,
+                  plan.pslot, plan.pdst, plan.bdst, plan.bsrc)
+    )
     for b in (S_BATCH, 3):
-        v = torch.as_tensor(
-            vbar_full[:, None]
-            + 1e-3 * rng.standard_normal((vbar_full.size, b)),
-            dtype=f32,
-        ).to(dev)
-        out = conv.conv_full_batch(v)
-        ref = conv_kernel.conv_full_batch_plain(
-            v, conv.t0, conv.tri_dofs, conv.scatter_slots, conv.ns
-        )
+        v = (vbar[:, None] + torch.as_tensor(
+            1e-3 * rng.standard_normal((n, b)), dtype=f32
+        )).to(dev)
+        out = conv_kernel.conv_inner(v, conv)
+        ref = ConvKernel.conv_inner_batch_t(conv, v)  # the plain slot sums
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out).all()), f"kernel output finite B={b}")
+        check(tuple(out.shape) == (n, b), f"kernel output shape B={b}")
         err = rel_err(out, ref)
         abs_err = float((out - ref).abs().max())
         check(err <= KERNEL_TOL, f"kernel vs plain B={b}: {err:.2e}")
+        check(torch.equal(out, conv_kernel.conv_inner(v, conv)),
+              f"kernel repeats bit for bit B={b}")
         kernel_err = max(kernel_err, abs_err)
-        k_ms = event_ms(lambda: conv.conv_full_batch(v), 50)
-        p_ms = event_ms(
-            lambda: conv_kernel.conv_full_batch_plain(
-                v, conv.t0, conv.tri_dofs, conv.scatter_slots, conv.ns
-            ),
-            50,
+        # events over back-to-back calls, as the replaced kernel was timed
+        k_ms = event_ms(lambda: conv_kernel.conv_inner(v, conv), 50)
+        p_ms = event_ms(lambda: ConvKernel.conv_inner_batch_t(conv, v), 50)
+        # device time of the wrapper's two kernels, without the host's
+        # launch cost that back-to-back calls at small B are bound by
+        rows, _ = kernel_split(lambda: [
+            conv_kernel.conv_inner(v, conv) for _ in range(20)
+        ])
+        d_ms = sum(us for name, (_, us) in rows.items()
+                   if "conv_p2" in name) / 20 / 1e3
+        bnd = bound_ms(
+            4 * (2 * n * b + nt * 432) + plan_bytes, 1008 * nt * b, "float32"
         )
         if b == S_BATCH:
-            kernel_ms, plain_ms = k_ms, p_ms
-            k_s = conv.scatter_slots.shape[1]
-            conv_bound = bound_ms(
-                4 * (2 * 2 * conv.ns * b + nt * 432)
-                + 8 * (nt * 6 + conv.ns * k_s),
-                1008 * nt * b, "float32",
-            )
-        log(f"[3] conv_p2 B={b}: rel err {err:.2e} (abs {abs_err:.2e}, "
-            f"tol {KERNEL_TOL:g}); kernel {k_ms * 1e3:.1f} us/call, "
-            f"plain {p_ms * 1e3:.1f} us/call")
+            kernel_ms, kernel_dev_ms, plain_ms = k_ms, d_ms, p_ms
+            conv_bound = bnd
+        log(f"[3] conv_p2 B={b} (free dofs in and out): rel err {err:.2e} "
+            f"(abs {abs_err:.2e}, tol {KERNEL_TOL:g}) vs the plain slot "
+            f"sums; kernel {k_ms * 1e3:.1f} us/call back to back (events), "
+            f"{d_ms * 1e3:.1f} us/call on the device (profiler); plain "
+            f"{p_ms * 1e3:.1f} us/call (events); bound {bnd[0] * 1e3:.1f} us "
+            f"({bnd[1]}) = {bnd[0] / k_ms:.0%} of the kernel's event time"
+            + (f"; replaced kernel {EARLIER_CONV_US} us (events, without "
+               f"its glue)" if b == S_BATCH else ""))
 
     # --- 4. gains -------------------------------------------------------
     t0 = time.perf_counter()
@@ -530,12 +614,35 @@ def main() -> None:
     warm = [sync_time(rollout)[1] for _ in range(3)]
     t_roll = statistics.median(warm)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    gemm_ms = event_ms(lambda: v0 @ fused32.pmat.T, 20)
+    rows, wall = kernel_split(rollout)
+    busy_us = sum(us for _, us in rows.values())
+    log(f"    profiler, one warm rollout ({NTS} steps, {wall * 1e3:.2f} ms "
+        f"wall, device busy {busy_us / 1e3:.2f} ms = "
+        f"{busy_us / 1e3 / (wall * 1e3):.1%}); per step: calls, us, share "
+        f"of the wall")
+    for name, (calls, us) in sorted(rows.items(), key=lambda r: -r[1][1]):
+        log(f"      {calls / NTS:6.3f} x {us / calls:9.2f} us "
+            f"{us / 1e3 / (wall * 1e3):6.1%}  {name[:110]}")
+
+    def calls(*words):
+        return sum(c for name, (c, _) in rows.items()
+                   if any(w in name.lower() for w in words))
+
+    check(calls("conv_p2_patch") == NTS,
+          f"profiled convection kernels: {calls('conv_p2_patch')} != {NTS}")
+    check(calls("index", "gather", "scatter") == 0,
+          "index_put, gather or scatter kernels in the rollout")
+    # copies only once per rollout (the transposed initial state and the
+    # final stack), none in a step
+    check(calls("copy") < NTS, f"copy kernels in the rollout: {calls('copy')}")
+    v0_t = v0.T.contiguous()
+    gemm_ms = event_ms(lambda: fused32.pmat @ v0_t, 20)
     log(f"    rollout {S_BATCH} x {NTS}: cold {t_cold:.3f} s, warm "
         f"{[round(t, 4) for t in warm]} s -> median "
         f"{S_BATCH * NTS / t_roll:.0f} solves/s "
-        f"({t_roll / NTS * 1e3:.3f} ms/step; one ({S_BATCH} x {n}) @ ({n} x {n}) "
-        f"f32 GEMM {gemm_ms:.3f} ms, conv_p2 {kernel_ms:.3f} ms); "
+        f"({t_roll / NTS * 1e3:.3f} ms/step; one ({n} x {n}) @ ({n} x "
+        f"{S_BATCH}) f32 GEMM {gemm_ms:.3f} ms, conv_p2 {kernel_dev_ms:.3f} ms "
+        f"on the device); "
         f"conv_p2 launches {main_launches}; peak device memory "
         f"{peak_gb:.2f} GB; TF32 off")
 
@@ -554,8 +661,6 @@ def main() -> None:
         f"(tol {ROLLOUT_TOL:g})")
 
     del fused64, fused32, conv, conv64
-    log(f"    conv_p2 bound at B={S_BATCH}: {conv_bound[0] * 1e3:.1f} us "
-        f"({conv_bound[1]})")
 
     # --- 7. SpMM kernel vs plain on the config-3 pencil -----------------
     t0 = time.perf_counter()
@@ -568,7 +673,9 @@ def main() -> None:
         c3_ops["A"], c3_ops["M"], c3_ops["J"], C3_DT,
         num_shifts=C3_SHIFTS, n_adi=C3_ADI,
     )
-    log(f"[7] config-3 setup {t_setup3:.1f} s: n={c3_sys64.n} "
+    log(f"[7] config-3 setup {t_setup3:.1f} s (numpy element matrices; "
+        f"{EARLIER_SETUP_S['config 3']} s with the native element library): "
+        f"n={c3_sys64.n} "
         f"n_p={c3_sys64.n_p} m={c3_sys64.m_in}, steady residual "
         f"{c3_ops['steady_info']['residual']:.2e}; shifts (ARPACK interval) "
         f"{time.perf_counter() - t0:.1f} s: {np.round(c3_sched[0], 2).tolist()}")
@@ -590,6 +697,7 @@ def main() -> None:
             "launches": main_launches,
             "max_abs_err": kernel_err,
             "ms": kernel_ms,
+            "device_ms": kernel_dev_ms,
             "plain_ms": plain_ms,
             "bound_ms": conv_bound[0],
             "bound_by": conv_bound[1],
@@ -597,9 +705,9 @@ def main() -> None:
             "at": f"B={S_BATCH}, n={n}, nt={nt}, float32",
         },
         {
-            "name": "spmm_ell",
+            "name": "spmm_tile",
             "route": "cuda",
-            "source": "optconpy_tpu_torch/csrc/spmm_ell.cu",
+            "source": "optconpy_tpu_torch/csrc/spmm_tile.cu",
             "replaces": "optconpy_tpu/ops/pallas_spmm.py:197",
             "launches": spmm_launches,
             "max_abs_err": spmm_err,

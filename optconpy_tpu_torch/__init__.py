@@ -9,7 +9,7 @@ explicit `device` argument wherever tensors are created. The kernels
 are hand-written CUDA for Hopper, built by ops/cuda_build.py: the
 batched P2 convection N(v)v (csrc/conv_p2.cu, bound in
 ops/conv_kernel.py) and the sparse-times-dense product of the
-Newton-Schulz inverse build (csrc/spmm_ell.cu, ops/spmm_kernel.py).
+Newton-Schulz inverse build (csrc/spmm_tile.cu, ops/spmm_kernel.py).
 
 Layer map (mirrors optconpy_tpu):
     ops/       ELL sparse operator, low-rank algebra, the CUDA kernels

@@ -7,12 +7,13 @@ convection_tensor); each evaluation is a static gather, a per-element
 contraction and a deterministic slot gather-sum into the scalar dofs.
 
 ConvKernel is the plain torch path in any dtype. FusedConvKernel routes
-the batched evaluation through the wrapper of the CUDA kernel
-(ops/conv_kernel.py): float32 on CUDA, the plain path on the CPU.
+every free-dof evaluation through the wrapper of the CUDA kernel
+(ops/conv_kernel.py), over its patch plan: float32 on CUDA, ConvKernel's
+plain slot sums on the CPU. On CUDA it refuses full-dof evaluations.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -119,10 +120,14 @@ class ConvKernel:
 
     def conv_inner_batch(self, v_batch: torch.Tensor) -> torch.Tensor:
         """Batched N(v)v on free dofs: (B, n_free) -> (B, n_free)."""
-        b = v_batch.shape[0]
-        v_full_t = self.dir_values[:, None].repeat(1, b)
-        v_full_t[self.free] = v_batch.T
-        return self.conv_full_batch(v_full_t)[self.free].T
+        return self.conv_inner_batch_t(v_batch.T).T
+
+    def conv_inner_batch_t(self, v_t: torch.Tensor) -> torch.Tensor:
+        """Batch-last N(v)v on free dofs: (n_free, B) -> (n_free, B)."""
+        return conv_kernel.conv_inner_batch_plain(
+            v_t, self.t0, self.tri_dofs, self.scatter_slots, self.free,
+            self.dir_values, self.ns,
+        )
 
     def to(self, device=None, dtype=None):
         return type(self)(
@@ -138,16 +143,24 @@ class ConvKernel:
 
 @dataclass(frozen=True)
 class FusedConvKernel(ConvKernel):
-    """ConvKernel whose evaluations go through the CUDA kernel wrapper
-    (ops/conv_kernel.py): the kernel on CUDA, which takes float32 only,
-    and the plain version on the CPU. A caller that wants f64 on CUDA
-    builds a ConvKernel."""
+    """ConvKernel whose free-dof evaluations (one vector or a batch) go
+    through the CUDA kernel wrapper (ops/conv_kernel.py): the kernel over
+    a patch plan built from the maps on CUDA, which takes float32 only,
+    and ConvKernel's plain slot sums on the CPU. A caller that wants f64
+    or full-dof N(v)v on CUDA builds a ConvKernel."""
+
+    plan: conv_kernel.ConvPlan = field(default=None, compare=False)
 
     def __post_init__(self):
         if self.t0.is_cuda and self.t0.dtype != torch.float32:
             raise TypeError(
                 f"FusedConvKernel on CUDA takes float32, got {self.t0.dtype}"
             )
+        if self.plan is None:
+            object.__setattr__(self, "plan", conv_kernel.ConvPlan.build(
+                self.tri_dofs.cpu(), self.free.cpu(), self.dir_values.cpu(),
+                self.ns, device=self.t0.device, dtype=self.t0.dtype,
+            ))
 
     @classmethod
     def build(cls, ops: dict, cond, *, device, dtype=torch.float32):
@@ -157,6 +170,21 @@ class FusedConvKernel(ConvKernel):
         return super().build(ops, cond, device=device, dtype=dtype)
 
     def conv_full_batch(self, v_full_t: torch.Tensor) -> torch.Tensor:
-        return conv_kernel.conv_full_batch(
-            v_full_t, self.t0, self.tri_dofs, self.scatter_slots, self.ns
-        )
+        # The kernel's contract is free dofs in and out; a full-dof
+        # evaluation on the card would quietly take the plain path.
+        if v_full_t.is_cuda:
+            raise ValueError(
+                "FusedConvKernel evaluates free dofs only on CUDA "
+                "(conv_inner, conv_inner_batch); build a ConvKernel for "
+                "full-dof N(v)v"
+            )
+        return super().conv_full_batch(v_full_t)
+
+    def conv_inner(self, v_inner: torch.Tensor) -> torch.Tensor:
+        return self.conv_inner_batch_t(v_inner[:, None].contiguous())[:, 0]
+
+    def conv_inner_batch(self, v_batch: torch.Tensor) -> torch.Tensor:
+        return self.conv_inner_batch_t(v_batch.T.contiguous()).T
+
+    def conv_inner_batch_t(self, v_t: torch.Tensor) -> torch.Tensor:
+        return conv_kernel.conv_inner(v_t, self)

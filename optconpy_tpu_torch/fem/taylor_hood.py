@@ -133,14 +133,12 @@ def _accumulate(rows, cols, vals, shape):
     return a.tocsr()
 
 
-def assemble_stokes(
-    space: TaylorHoodSpace, nu: float = 1.0, backend: str = "auto"
-):
+def assemble_stokes(space: TaylorHoodSpace, nu: float = 1.0):
     """Assemble (M_scalar, K_scalar, J, Bdiv-free ops) for Taylor-Hood.
 
-    backend: 'auto' uses the C++ element kernels (native/, the
-    DOLFIN/FFC-parity substrate) when the shared library loads, else
-    the vectorized-numpy oracle; 'numpy' forces the oracle.
+    The element matrices come from vectorized numpy only (the
+    reference's numpy path, line for line), so the operators do not
+    depend on the machine or on a compiled library.
 
     Returns dict with:
       Ms: (ns, ns) scalar P2 mass;  Ks: (ns, ns) scalar P2 stiffness;
@@ -164,33 +162,21 @@ def assemble_stokes(
     dphi = _p2_dlam(_QL)  # (nq, 6, 3)
     w = _QW * 0.5  # reference-triangle weights (area 1/2)
 
-    use_native = False
-    if backend == "auto":
-        from .. import native
+    # Scalar mass: element-independent reference integral * 2*area.
+    m_ref = np.einsum("q,qi,qj->ij", w, phi, phi)  # (6, 6)
+    m_loc = 2 * area[:, None, None] * m_ref[None]
 
-        use_native = native.available()
-    if use_native:
-        from .. import native
-
-        m_loc, k_loc, j_loc, _ = native.element_matrices(
-            mesh.vertices, mesh.triangles
-        )
-    else:
-        # Scalar mass: element-independent reference integral * 2*area.
-        m_ref = np.einsum("q,qi,qj->ij", w, phi, phi)  # (6, 6)
-        m_loc = 2 * area[:, None, None] * m_ref[None]
-
-        # Scalar stiffness: grad phi_i . grad phi_j (grads via glam).
-        # gphi[e, q, i, d] = dphi[q, i, l] glam[e, l, d]
-        gq = np.einsum("qil,eld->eqid", dphi, glam)
-        k_loc = 2 * area[:, None, None] * np.einsum(
-            "q,eqid,eqjd->eij", w, gq, gq
-        )
-        # Divergence: J[p_i, (u_j, comp d)] = int lambda_i d(phi_j)/dx_d.
-        p1 = _QL  # P1 values at quad points = barycentric coords (nq, 3)
-        j_loc = 2 * area[:, None, None, None] * np.einsum(
-            "q,qi,eqjd->eijd", w, p1, gq
-        )  # (nt, 3, 6, 2)
+    # Scalar stiffness: grad phi_i . grad phi_j (grads via glam).
+    # gphi[e, q, i, d] = dphi[q, i, l] glam[e, l, d]
+    gq = np.einsum("qil,eld->eqid", dphi, glam)
+    k_loc = 2 * area[:, None, None] * np.einsum(
+        "q,eqid,eqjd->eij", w, gq, gq
+    )
+    # Divergence: J[p_i, (u_j, comp d)] = int lambda_i d(phi_j)/dx_d.
+    p1 = _QL  # P1 values at quad points = barycentric coords (nq, 3)
+    j_loc = 2 * area[:, None, None, None] * np.einsum(
+        "q,qi,eqjd->eijd", w, p1, gq
+    )  # (nt, 3, 6, 2)
 
     rows = np.broadcast_to(dofs[:, :, None], (nt, 6, 6))
     cols = np.broadcast_to(dofs[:, None, :], (nt, 6, 6))

@@ -5,7 +5,8 @@ The steady-state-linearized convection L1(vbar) is implicit and only
 the quadratic remainder N(v)v - L1(vbar) v stays explicit; the whole
 linear part of a step is pre-contracted on the host in f64 into two
 (n, n) matrices, so each step of a scenario batch is two GEMMs, the
-batched convection and a few tall-skinny products.
+batched convection and a few tall-skinny products. The loop keeps the
+batch last, as the convection kernel reads and writes it.
 
 State convention: v is the FREE-dof velocity (Dirichlet values live in
 the ConvKernel); the feedback regulates the perturbation from the
@@ -116,8 +117,9 @@ def batched_nse_closed_loop_fused(
     feedback: str = "explicit",
 ):
     """Fused batched closed loop: a time loop with the whole scenario
-    batch inside each step, (B, n) GEMMs and the batch-last convection
-    (conv.conv_inner_batch).
+    batch inside each step. The state is kept batch-last, (n, S), so
+    the batch-last convection (conv.conv_inner_batch_t) reads and writes
+    it directly and each step's products are (n, n) @ (n, S) GEMMs.
 
     ks: (nts+1, m, n) gains; ws: (nts+1, n) feedforward terms; v0_batch
     (S, n). feedback: 'explicit' applies u_k from v_k; 'implicit' solves
@@ -128,34 +130,32 @@ def batched_nse_closed_loop_fused(
     if feedback not in ("explicit", "implicit"):
         raise ValueError(f"unknown feedback mode: {feedback}")
     bt = sys.b.T
-    vbar = cache.vbar
+    vbar = cache.vbar[:, None]
+    c0 = cache.c0[:, None]
     eye_m = torch.eye(sys.m_in, dtype=cache.gmat.dtype, device=vbar.device)
-    v = v0_batch
-    vs, us = [v0_batch], []
+    v = v0_batch.T.contiguous()
+    vs, us = [v], []
     for k_gain, w_k in zip(ks[:-1], ws[:-1]):
-        uff = (bt @ w_k) / alpha
-        conv_term = conv.conv_inner_batch(v) @ cache.inv_vv.T
+        uff = ((bt @ w_k) / alpha)[:, None]
+        # pmat v - inv_vv N(v)v, the second GEMM accumulating in place
+        x0 = cache.pmat @ v
+        x0.addmm_(cache.inv_vv, conv.conv_inner_batch_t(v), alpha=-1.0)
         if feedback == "implicit":
-            x0 = (
-                v @ cache.pmat.T
-                + (uff + k_gain @ vbar) @ cache.gmat.T
-                - conv_term
-                + cache.c0
-            )
+            x0 += c0 + cache.gmat @ (uff + k_gain @ vbar)
             s_mat = eye_m + k_gain @ cache.gmat
-            corr = torch.linalg.solve(s_mat, (x0 @ k_gain.T).T).T
-            v = x0 - corr @ cache.gmat.T
-            u = -(v - vbar) @ k_gain.T + uff
+            corr = torch.linalg.solve(s_mat, k_gain @ x0)
+            v = x0 - cache.gmat @ corr
+            u = -k_gain @ (v - vbar) + uff
         else:
-            u = -(v - vbar) @ k_gain.T + uff
-            v = v @ cache.pmat.T + u @ cache.gmat.T - conv_term + cache.c0
+            u = -k_gain @ (v - vbar) + uff
+            v = x0.addmm_(cache.gmat, u).add_(c0)
         vs.append(v)
         us.append(u)
     vs = torch.stack(vs)
     us = torch.stack(us)
-    ys = vs @ sys.c.T
-    # time-major -> scenario-major
-    return vs.transpose(0, 1), us.transpose(0, 1), ys.transpose(0, 1)
+    ys = sys.c @ vs
+    # time-major, batch-last -> scenario-major
+    return vs.permute(2, 0, 1), us.permute(2, 0, 1), ys.permute(2, 0, 1)
 
 
 def batched_nse_closed_loop(

@@ -20,7 +20,10 @@ factorization. Counterpart of optconpy_tpu/solvers/ns_inverse.py:
 
 Every shift's inverse is probed with random vectors: its residual and a
 pass flag (residual <= certify_tol) are returned, and a residual that is
-not finite or not below 1 (Newton-Schulz diverged) raises.
+not finite or not below 1 (Newton-Schulz diverged) raises. The residual
+that certifies is evaluated in float64 whatever the stack's dtype: in
+float32, v - A(s)(X v) cancels terms that grow with |s|, so its
+float32 evaluation has a floor of its own above the iterate's error.
 """
 from __future__ import annotations
 
@@ -32,8 +35,8 @@ import numpy as np
 import torch
 
 from ..ops.spmm_kernel import (
-    ELLPack,
-    pack_ell,
+    SpmmPack,
+    pack_spmm,
     rcm_permutation,
     sort_rows_by_window,
     spmm,
@@ -51,6 +54,7 @@ MAX_SEED_PASSES = 12
 POWER_ITERS = 24
 N_PROBES = 8
 SEED = 17
+CERTIFY_ROW_CHUNK = 2048  # rows of X cast to float64 at a time
 
 
 @dataclass(frozen=True)
@@ -59,10 +63,10 @@ class SaddleOpsPack:
     [[At + s M, J^T], [J, 0]] in an RCM velocity ordering (pressure rows
     sorted by their first velocity column)."""
 
-    at: ELLPack
-    m: ELLPack
-    j: ELLPack
-    jt: ELLPack
+    at: SpmmPack
+    m: SpmmPack
+    j: SpmmPack
+    jt: SpmmPack
     m_diag: torch.Tensor  # (n,)
     n: int
     n_p: int
@@ -83,7 +87,7 @@ class SaddleOpsPack:
         j_r = j_c[sort_rows_by_window(j_c)].tocsr()
 
         def pack(a):
-            return pack_ell(a, device=device, dtype=dtype)
+            return pack_spmm(a, device=device, dtype=dtype)
 
         ops = SaddleOpsPack(
             at=pack(at_r),
@@ -128,6 +132,23 @@ def _residual_probe(pack: SaddleOpsPack, s: float, x, gen) -> float:
     """max over random probes v of ||v - A(s) (X v)|| / ||v||."""
     v = _probes(x.shape[0], x, gen)
     return _max_rel_norm(v - _apply_big(pack, s, x @ v), v)
+
+
+def _certify_probe(pack, pack64, s: float, x, gen) -> tuple[float, float]:
+    """The probed residual of X at shift s evaluated in X's dtype and in
+    float64 (pack64: the float64 pack, None when X is float64). The
+    float64 X v is summed from row chunks of X cast to float64, so no
+    float64 copy of the whole X exists."""
+    v = _probes(x.shape[0], x, gen)
+    res = _max_rel_norm(v - _apply_big(pack, s, x @ v), v)
+    if pack64 is None:
+        return res, res
+    v64 = v.double()
+    xv = torch.cat([
+        x[r:r + CERTIFY_ROW_CHUNK].double() @ v64
+        for r in range(0, x.shape[0], CERTIFY_ROW_CHUNK)
+    ])
+    return res, _max_rel_norm(v64 - _apply_big(pack64, s, xv), v64)
 
 
 def _power_iteration(op, v) -> float:
@@ -189,15 +210,23 @@ def build_inverse_stack_ns(
     SaddleShiftedInverseCache.build_sparse_host (original dof order).
 
     Returns (inv_stack, info): info["residuals"][i] is shift i's probed
-    residual and info["certified"][i] whether it is <= certify_tol;
-    also the ladder's counts and the build time in seconds. Raises if
-    a residual is not finite or >= 1 (Newton-Schulz diverged).
+    residual evaluated in float64 and info["certified"][i] whether it is
+    <= certify_tol (further passes run while it is not, up to
+    MAX_CERTIFY_PASSES); info["residuals_working"][i] is the same probe
+    evaluated in `dtype`. Also the ladder's counts and the build time in
+    seconds. Raises if a residual is not finite or >= 1 (Newton-Schulz
+    diverged).
     """
     log = verbose or (lambda *_: None)
     t_all = time.perf_counter()
     pack, perm = SaddleOpsPack.build(
         at_sp, m_sp, j_sp, device=device, dtype=dtype
     )
+    pack64 = None
+    if dtype != torch.float64:
+        pack64, _ = SaddleOpsPack.build(
+            at_sp, m_sp, j_sp, device=device, dtype=torch.float64
+        )
     n, n_p = pack.n, pack.n_p
     gen = torch.Generator(device=device).manual_seed(SEED)
     ns_passes = 0
@@ -250,6 +279,7 @@ def build_inverse_stack_ns(
     inv_stack = torch.empty((len(sig_np), n, n), dtype=dtype, device=device)
     iperm = torch.as_tensor(np.argsort(perm)).to(device)
     residuals = [None] * len(sig_np)
+    working = [None] * len(sig_np)
     certified = [None] * len(sig_np)
     extras = [None] * len(sig_np)
     s_cur = s_huge
@@ -265,12 +295,12 @@ def build_inverse_stack_ns(
         for _ in range(EXTRA_PASSES_AT_SHIFT):
             x = _ns_pass_saddle(pack, s_target, x)
         ns_passes += EXTRA_PASSES_AT_SHIFT
-        res = _residual_probe(pack, s_target, x, gen)
+        res_w, res = _certify_probe(pack, pack64, s_target, x, gen)
         extra = 0
         while res > certify_tol and extra < MAX_CERTIFY_PASSES:
             x = _ns_pass_saddle(pack, s_target, x)
             extra += 1
-            res = _residual_probe(pack, s_target, x, gen)
+            res_w, res = _certify_probe(pack, pack64, s_target, x, gen)
         ns_passes += extra
         if not math.isfinite(res) or res >= 1.0:
             raise RuntimeError(
@@ -278,17 +308,19 @@ def build_inverse_stack_ns(
                 f"residual {res:.3e}"
             )
         residuals[pos] = res
+        working[pos] = res_w
         certified[pos] = res <= certify_tol
         extras[pos] = extra
         # velocity block, back in the original dof order
         inv_stack[pos] = x[iperm[:, None], iperm]
         flag = "certified" if certified[pos] else "NOT certified"
-        log(f"  shift {s_target:12.2f}: residual {res:.2e} "
-            f"(+{extra} extra passes, {flag})")
+        log(f"  shift {s_target:12.2f}: residual {res:.2e} (in {dtype}: "
+            f"{res_w:.2e}) (+{extra} extra passes, {flag})")
     if inv_stack.is_cuda:
         torch.cuda.synchronize(inv_stack.device)
     info = {
         "residuals": residuals,
+        "residuals_working": working,
         "certified": certified,
         "certify_tol": certify_tol,
         "extra_passes": extras,

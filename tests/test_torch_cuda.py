@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels (csrc/conv_p2.cu, csrc/spmm_ell.cu) on
+"""The hand-written CUDA kernels (csrc/conv_p2.cu, csrc/spmm_tile.cu) on
 the card.
 
 The kernels have no CPU mode, so every test here is marked `cuda` and
@@ -8,9 +8,10 @@ also runs on a machine without the reference installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Inputs come from the cylinder wake (Re=100, refinement 1): the
-convection kernel's element tensor and maps at the batch widths of the
-rollout, and the NS pencil's operators (Atil^T, M, J, J^T in RCM order)
-at the widths of the NS build. Each kernel must match its plain torch
+convection kernel's element tensor and patch plan at the batch widths
+of the rollout, and the NS pencil's operators (Atil^T, M, J, J^T in RCM
+order) at the widths of the NS build, plus ragged edges (last column
+tiles, a small operator with an empty row). Each kernel must match its plain torch
 version to 1e-5 relative in float32 (and the SpMM to 1e-12 in float64).
 """
 from dataclasses import replace
@@ -79,30 +80,36 @@ def pencil(cylinder):
     return dev, np_ops, packs
 
 
-@pytest.mark.parametrize("b", [1, 3, 1024])
+@pytest.mark.parametrize("b", [1, 3, 63, 1000, 1024])
 def test_kernel_matches_plain(card, b):
+    """The free-dof contract (n_free, B) -> (n_free, B) against its plain
+    version, the slot sums of ConvKernel (independent of the patch
+    plan); B=63 and 1000 leave a ragged last column tile."""
     dev, fused, vbar_full = card
     rng = np.random.default_rng(b)
-    v = vbar_full[:, None] + 0.1 * rng.standard_normal((vbar_full.size, b))
+    v = vbar_full[fused.free.cpu().numpy(), None] + 0.1 * rng.standard_normal(
+        (fused.n_free, b)
+    )
     v = torch.as_tensor(v, dtype=torch.float32).to(dev)
     before = conv_kernel.launches
-    got = fused.conv_full_batch(v)
-    plain = conv_kernel.conv_full_batch_plain(
-        v, fused.t0, fused.tri_dofs, fused.scatter_slots, fused.ns
-    )
+    got = conv_kernel.conv_inner(v, fused)
     torch.cuda.synchronize()
     assert conv_kernel.launches == before + 1
-    assert got.shape == (2 * fused.ns, b)
-    assert _rel(got, plain) <= 1e-5
+    assert got.shape == (fused.n_free, b)
+    plain = ConvKernel.from_arrays(
+        interop.flatten_arrays(fused), device=dev, dtype=torch.float32
+    )
+    assert _rel(got, plain.conv_inner_batch_t(v)) <= 1e-5
 
 
-def test_kernel_is_deterministic(card):
+@pytest.mark.parametrize("b", [3, 1024])
+def test_kernel_is_deterministic(card, b):
     dev, fused, _ = card
-    v = torch.randn((2 * fused.ns, 257), device=dev,
-                    generator=torch.Generator(dev).manual_seed(0))
-    a = fused.conv_full_batch(v)
-    b = fused.conv_full_batch(v)
-    assert torch.equal(a, b)
+    v = torch.randn((fused.n_free, b), device=dev,
+                    generator=torch.Generator(dev).manual_seed(b))
+    a = conv_kernel.conv_inner(v, fused)
+    c = conv_kernel.conv_inner(v, fused)
+    assert torch.equal(a, c)
 
 
 def test_inner_batch_matches_plain_kernel(card):
@@ -117,34 +124,75 @@ def test_inner_batch_matches_plain_kernel(card):
     assert _rel(fused.conv_inner_batch(v), plain.conv_inner_batch(v)) <= 1e-5
 
 
+def test_single_vector_launches_kernel(card):
+    """conv_inner of one free-dof vector goes through the kernel (one
+    launch); the full-dof evaluations refuse CUDA tensors."""
+    dev, fused, vbar_full = card
+    plain = ConvKernel.from_arrays(
+        interop.flatten_arrays(fused), device=dev, dtype=torch.float32
+    )
+    v = torch.as_tensor(
+        vbar_full[fused.free.cpu().numpy()], dtype=torch.float32
+    ).to(dev)
+    before = conv_kernel.launches
+    got = fused.conv_inner(v)
+    torch.cuda.synchronize()
+    assert conv_kernel.launches == before + 1
+    assert got.shape == (fused.n_free,)
+    assert _rel(got, plain.conv_inner(v)) <= 1e-5
+    v_full = plain.expand(v)
+    with pytest.raises(ValueError, match="free dofs only"):
+        fused.conv_full(v_full)
+    with pytest.raises(ValueError, match="free dofs only"):
+        fused.conv_full_batch(v_full[:, None])
+    assert conv_kernel.launches == before + 1
+
+
 def test_wrapper_refuses_bad_inputs(card):
     dev, fused, _ = card
-    args = (fused.t0, fused.tri_dofs, fused.scatter_slots, fused.ns)
+    n = fused.n_free
+    run = conv_kernel.conv_inner
     with pytest.raises(TypeError, match="float32"):
-        conv_kernel.conv_full_batch(
-            torch.zeros((2 * fused.ns, 4), dtype=torch.float64, device=dev),
-            *args,
-        )
+        run(torch.zeros((n, 4), dtype=torch.float64, device=dev), fused)
     with pytest.raises(ValueError, match="contiguous"):
-        conv_kernel.conv_full_batch(
-            torch.zeros((4, 2 * fused.ns), device=dev).T, *args
-        )
+        run(torch.zeros((4, n), device=dev).T, fused)
     with pytest.raises(ValueError, match="shape"):
-        conv_kernel.conv_full_batch(
-            torch.zeros((2 * fused.ns + 1, 4), device=dev), *args
-        )
+        run(torch.zeros((n + 1, 4), device=dev), fused)
+    with pytest.raises(ValueError, match="is on"):
+        run(torch.zeros((n, 4), device=dev), replace(
+            fused, plan=replace(fused.plan, pslot=fused.plan.pslot.cpu())))
+    with pytest.raises(TypeError, match="int32"):
+        run(torch.zeros((n, 4), device=dev), replace(
+            fused, plan=replace(fused.plan, pdst=fused.plan.pdst.long())))
     with pytest.raises(TypeError, match="float32"):
         fused.to(dtype=torch.float64)
+
+
+def _ragged_operator():
+    """37 x 53 with a ragged last row tile, an empty row and one row
+    spanning every column."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(3)
+    a = sp.random(37, 53, density=0.15, random_state=rng, format="lil")
+    a[5, :] = 0.0
+    a[36, :] = rng.standard_normal(53)
+    return sp.csr_matrix(a)
 
 
 @pytest.mark.parametrize("dtype, tol", [
     (torch.float32, 1e-5), (torch.float64, 1e-12),
 ])
-@pytest.mark.parametrize("b", [1, 8, 5037])
-@pytest.mark.parametrize("name", ["at", "m", "j", "jt"])
+@pytest.mark.parametrize("b", [1, 8, 33, 5037])
+@pytest.mark.parametrize("name", ["at", "m", "j", "jt", "ragged"])
 def test_spmm_matches_plain(pencil, name, b, dtype, tol):
+    """The NS pencil's operators (J the wide one) and a ragged operator
+    with an empty row; B=33 and 5037 leave a ragged last column tile."""
     dev, _, packs = pencil
-    a = getattr(packs[dtype], name)
+    if name == "ragged":
+        a = spmm_kernel.pack_spmm(_ragged_operator(), device=dev, dtype=dtype)
+    else:
+        a = getattr(packs[dtype], name)
     rng = np.random.default_rng(b)
     x = torch.as_tensor(
         rng.standard_normal((a.shape[1], b)), dtype=dtype
@@ -156,16 +204,40 @@ def test_spmm_matches_plain(pencil, name, b, dtype, tol):
     assert spmm_kernel.launches == before + 1
     assert got.shape == (a.shape[0], b) and got.dtype == dtype
     assert _rel(got, plain) <= tol
+    if name == "ragged":
+        assert torch.all(got[5] == 0)
 
 
-def test_spmm_is_deterministic(pencil):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["at", "j"])
+def test_spmm_is_deterministic(pencil, name, dtype):
     dev, _, packs = pencil
-    a = packs[torch.float32].at
-    x = torch.randn((a.shape[1], 300), device=dev,
+    a = getattr(packs[dtype], name)
+    x = torch.randn((a.shape[1], 300), device=dev, dtype=dtype,
                     generator=torch.Generator(dev).manual_seed(1))
     before = spmm_kernel.launches
     assert torch.equal(spmm_kernel.spmm(a, x), spmm_kernel.spmm(a, x))
     assert spmm_kernel.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spmm_nonfinite_x_as_plain(pencil, dtype):
+    """An inf in X spreads to the rows of the groups that hold its column
+    (ops/spmm_kernel.py semantics), in the kernel as in the plain version;
+    every other row stays finite and matches."""
+    dev, _, packs = pencil
+    a = packs[dtype].at
+    x = torch.randn((a.shape[1], 64), device=dev, dtype=dtype,
+                    generator=torch.Generator(dev).manual_seed(2))
+    x[a.ecol[a.eptr[7]].long()] = float("inf")
+    got = spmm_kernel.spmm(a, x)
+    plain = spmm_kernel.spmm_plain(a, x)
+    ok = torch.isfinite(plain)
+    assert torch.equal(torch.isfinite(got), ok) and not ok.all()
+    assert torch.equal(torch.isnan(got), torch.isnan(plain))
+    assert _rel(got[ok.all(dim=1)], plain[ok.all(dim=1)]) <= (
+        1e-5 if dtype == torch.float32 else 1e-12
+    )
 
 
 def test_spmm_refuses_bad_inputs(pencil):
@@ -176,7 +248,7 @@ def test_spmm_refuses_bad_inputs(pencil):
         spmm_kernel.spmm(a, torch.zeros((n, 4), dtype=torch.float64,
                                         device=dev))
     with pytest.raises(TypeError, match="float32 or float64"):
-        spmm_kernel.spmm(replace(a, data=a.data.half()),
+        spmm_kernel.spmm(replace(a, evals=a.evals.half()),
                          torch.zeros((n, 4), dtype=torch.float16, device=dev))
     with pytest.raises(ValueError, match="contiguous"):
         spmm_kernel.spmm(a, torch.zeros((4, n), device=dev).T)
@@ -185,7 +257,10 @@ def test_spmm_refuses_bad_inputs(pencil):
     with pytest.raises(ValueError, match="n, B"):
         spmm_kernel.spmm(a, torch.zeros((n,), device=dev))
     with pytest.raises(ValueError, match="is on"):
-        spmm_kernel.spmm(replace(a, data=a.data.cpu()),
+        spmm_kernel.spmm(replace(a, evals=a.evals.cpu()),
+                         torch.zeros((n, 4), device=dev))
+    with pytest.raises(TypeError, match="int32"):
+        spmm_kernel.spmm(replace(a, ecol=a.ecol.long()),
                          torch.zeros((n, 4), device=dev))
 
 

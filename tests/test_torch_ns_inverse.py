@@ -19,6 +19,7 @@ from optconpy_tpu.riccati import build_dre_cache_dae_ns as j_build_ns
 from optconpy_tpu.riccati import dre_backward_sweep as j_dre_sweep
 from optconpy_tpu.riccati import dre_shift_schedule_dae as j_schedule
 from optconpy_tpu.riccati.validate import dre_step_residual as j_residual
+from optconpy_tpu import native as j_native
 from optconpy_tpu_torch.models.cavity import cavity_stokes_setup
 from optconpy_tpu_torch.riccati import (
     build_dre_cache_dae_ns,
@@ -49,7 +50,10 @@ def _pencil(ops):
 @pytest.fixture(scope="module")
 def cavity():
     torch.set_num_threads(1)
-    j_ops, j_sys, _ = j_cavity_setup(nx=8)
+    with pytest.MonkeyPatch.context() as mp:
+        # the reference's numpy element path, the port's only one
+        mp.setattr(j_native, "available", lambda: False)
+        j_ops, j_sys, _ = j_cavity_setup(nx=8)
     t_ops, t_sys, _ = cavity_stokes_setup(nx=8, device=CPU, dtype=F64)
     return j_ops, j_sys, t_ops, t_sys
 
@@ -169,3 +173,28 @@ def test_divergence_raises(cavity):
     at.data[0] = np.nan
     with pytest.raises(RuntimeError, match="diverged"):
         build_inverse_stack_ns(at, m, j, [-400.0], device=CPU, dtype=F64)
+
+
+def test_f32_stack_certifies_in_f64(cavity):
+    """An f32 stack's certification probe is evaluated in f64 as well,
+    and the f64 evaluation certifies. At s = -4000 the f32 evaluation of
+    v - A(s) X v (cancelling terms that grow with |s|) misses 5e-4 while
+    the f64 evaluation of the same f32 iterate passes; the stored blocks
+    agree with the host splu stack to f32 accuracy."""
+    _, _, t_ops, _ = cavity
+    sig = [-4000.0, -400.0]
+    inv, info = build_inverse_stack_ns(
+        *_pencil(t_ops), sig, device=CPU, dtype=torch.float32,
+        certify_tol=5e-4,
+    )
+    assert inv.dtype == torch.float32
+    res64, res32 = info["residuals"], info["residuals_working"]
+    assert info["certified"] == [True, True], res64
+    assert info["extra_passes"] == [0, 0]
+    assert res32[0] > 5e-4 > res64[0] > 0.0
+    assert 0.0 < res64[1] < 5e-4
+    ref = SaddleShiftedInverseCache.build_sparse_host(
+        *_pencil(t_ops), sig, dtype=np.float64
+    )
+    for i in range(2):
+        assert _rel(inv[i].double(), ref[i]) < 1e-3, i

@@ -19,6 +19,7 @@ from optconpy_tpu.riccati import load_or_build_inverse_stack as j_stack
 from optconpy_tpu.solvers.saddle import (
     SaddleShiftedInverseCache as JInverseCache,
 )
+from optconpy_tpu import native as j_native
 from optconpy_tpu_torch import interop
 from optconpy_tpu_torch.models.cylinder import (
     cylinder_setup as t_cylinder_setup,
@@ -47,7 +48,10 @@ def _at_til(ops):
 @pytest.fixture(scope="module")
 def riccati():
     torch.set_num_threads(1)
-    j_ops, j_sys, _ = j_cylinder_setup(re=100.0, refinement=1)
+    with pytest.MonkeyPatch.context() as mp:
+        # the reference's numpy element path, the port's only one
+        mp.setattr(j_native, "available", lambda: False)
+        j_ops, j_sys, _ = j_cylinder_setup(re=100.0, refinement=1)
     t_ops, t_sys, _ = t_cylinder_setup(re=100.0, refinement=1, device=CPU)
     j_sched = j_schedule(
         j_ops["A"], j_ops["M"], j_ops["J"], DT,

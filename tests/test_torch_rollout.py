@@ -23,6 +23,7 @@ from optconpy_tpu.riccati import load_or_build_inverse_stack as j_stack
 from optconpy_tpu.solvers.saddle import (
     SaddleShiftedInverseCache as JInverseCache,
 )
+from optconpy_tpu import native as j_native
 from optconpy_tpu_torch import interop
 from optconpy_tpu_torch.fem.device_conv import ConvKernel, FusedConvKernel
 from optconpy_tpu_torch.models.cylinder import (
@@ -89,7 +90,10 @@ def _port_slice(ops, sys, cond):
 @pytest.fixture(scope="module")
 def slices():
     torch.set_num_threads(1)
-    j_ops, j_sys, j_cond = j_cylinder_setup(re=100.0, refinement=1)
+    with pytest.MonkeyPatch.context() as mp:
+        # the reference's numpy element path, the port's only one
+        mp.setattr(j_native, "available", lambda: False)
+        j_ops, j_sys, j_cond = j_cylinder_setup(re=100.0, refinement=1)
     t_ops, t_sys, t_cond = t_cylinder_setup(re=100.0, refinement=1,
                                             device=CPU)
     n, m = t_sys.b.shape

@@ -17,6 +17,7 @@ import torch
 from optconpy_tpu.fem.device_conv import ConvKernel as JConvKernel
 from optconpy_tpu.fem.taylor_hood import convection_tensor as j_conv_tensor
 from optconpy_tpu.models.cylinder import cylinder_setup as j_cylinder_setup
+from optconpy_tpu import native as j_native
 from optconpy_tpu_torch import interop
 from optconpy_tpu_torch.fem.device_conv import _host_arrays
 from optconpy_tpu_torch.fem.taylor_hood import (
@@ -38,7 +39,10 @@ CPU = torch.device("cpu")
 @pytest.fixture(scope="module")
 def cyl():
     torch.set_num_threads(1)
-    ref = j_cylinder_setup(re=100.0, refinement=1)
+    with pytest.MonkeyPatch.context() as mp:
+        # the reference's numpy element path, the port's only one
+        mp.setattr(j_native, "available", lambda: False)
+        ref = j_cylinder_setup(re=100.0, refinement=1)
     port = t_cylinder_setup(re=100.0, refinement=1, device=CPU)
     return ref, port
 
@@ -183,3 +187,29 @@ def test_port_never_imports_jax():
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok ")
     assert int(out.stdout.split()[1]) >= 30
+
+
+def test_port_setup_never_loads_native_library():
+    """The port's cylinder setup assembles with numpy alone: it neither
+    imports a native loader nor maps liboptconpy_native into the
+    process, so its operators do not depend on where a library was
+    built."""
+    code = (
+        "import sys, torch\n"
+        "from optconpy_tpu_torch.models.cylinder import cylinder_setup\n"
+        "ops, sys_, _ = cylinder_setup(re=100.0, refinement=1,"
+        " device=torch.device('cpu'))\n"
+        "assert sys_.n == 4396\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'liboptconpy_native' not in maps\n"
+        "assert not any('native' in k for k in sys.modules"
+        " if k.startswith('optconpy_tpu'))\n"
+        "assert 'jax' not in sys.modules\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=300, cwd=Path(__file__).resolve().parents[1],
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
