@@ -36,7 +36,17 @@ the card. Phases:
      then the f32 stack at certify_tol 5e-4 (each shift's probe
      evaluated in f32 and in f64; the f64 one certifies) and its sweep
      (first and warm); |JZ|/|Z| <= 1e-5 and the projected DRE residual at
-     steps 0 and 8 <= 1e-2 (host f64); f32-vs-f64 gain deviation <= 1e-4.
+     steps 0 and 8 <= 1e-2 (host f64); f32-vs-f64 gain deviation <= 1e-4;
+ 10. the user's entry point, optconpy_tpu_torch.optcont.optcon_nse:
+     (a) config 4 (the bench shape with a feedforward and a gain for
+     every one of 64 steps, y* = steady output + 0.01) in f32 on the
+     fused step tier with Newton-Schulz gains, 1024 scenarios: every
+     shift certified, K2 launched in the DRE stage and K1 exactly 64
+     times in the rollout, finite outputs, TF32 off; (b) the same config
+     in f64 on the first 2 scenarios: f32 vs f64 gains and outputs
+     <= 1e-4; (c) configs 1 (heat1d) and 2 (driven cavity) on the lu
+     tiers on the card against device="cpu" (<= 1e-10). Each run's stage
+     seconds and closed-loop solves/s are printed.
 
 Every failed check raises, so the exit code is non-zero. The last three
 lines are the kernels JSON, the card's name and power limit, and
@@ -51,7 +61,9 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from contextlib import contextmanager
 
 import numpy as np
 
@@ -87,6 +99,12 @@ C3_CERTIFY_F32 = 5e-4  # the reference's certify_tol
 FEAS_TOL = 1e-5  # |J Z| / |Z| of the f32 factors (the reference's bound)
 DRE_RES_TOL = 1e-2  # projected DRE step residual (the reference's bound)
 SPMM_TOL = {"float32": 1e-5, "float64": 1e-12}  # kernel vs plain, relative
+
+# Phase 10: the driver. Config 4 is the bench shape through optcon_nse,
+# with a gain and a feedforward for every step, explicit feedback as the
+# bench's loop; (b) repeats it in f64 on the first S_REF scenarios.
+YSTAR_AMP = 0.01
+DRIVER_TOL = 1e-10  # lu tiers, card vs CPU, f64
 
 # Times of the kernels this port replaced, on an NVIDIA H100 80GB HBM3 at
 # 700 W (PERF.md), printed beside this run's: the first convection kernel
@@ -435,6 +453,157 @@ def config3_phase(c3_ops, sys64, sched) -> int:
     return launches
 
 
+def driver_configs():
+    """Config 4 (f32, fused, Newton-Schulz gains) and the reference driver
+    tests' heat1d and cavity configs on the lu tiers (f64)."""
+    from optconpy_tpu_torch.utils import (
+        CostConfig,
+        OptConConfig,
+        ProblemConfig,
+        SolverConfig,
+        TimeConfig,
+    )
+
+    config4 = OptConConfig(
+        problem=ProblemConfig(name="cylinderwake", re=RE,
+                              refinement=REFINEMENT),
+        time=TimeConfig(t0=0.0, t_end=NTS * DT, nts=NTS),
+        cost=CostConfig(alpha=ALPHA, ystar="steady_offset",
+                        ystar_amp=YSTAR_AMP),
+        solver=SolverConfig(
+            num_shifts=N_SHIFTS, n_adi=N_ADI, n_newton=N_NEWTON, r_max=R_MAX,
+            dtype="float32", step_solver="fused", dre_solver="inverse_ns",
+            feedback="explicit",
+        ),
+    )
+    heat = OptConConfig(  # tests/test_round2_fixes.py HEAT_CFG
+        problem=ProblemConfig(name="heat1d", n_dof=64),
+        time=TimeConfig(t0=0.0, t_end=1.0, nts=50),
+        cost=CostConfig(alpha=1e-2, ystar="zero"),
+        solver=SolverConfig(
+            num_shifts=8, n_adi=20, n_newton=3, r_max=30, dtype="float64",
+            feedback="explicit", step_solver="lu", dre_solver="lu",
+        ),
+    )
+    cavity = OptConConfig(  # tests/test_optcont_driver.py CFG
+        problem=ProblemConfig(name="drivencavity", nx=6),
+        time=TimeConfig(t0=0.0, t_end=0.4, nts=20),
+        cost=CostConfig(alpha=1e-8, ystar="steady_offset", ystar_amp=0.01),
+        solver=SolverConfig(
+            num_shifts=8, n_adi=20, n_newton=2, r_max=30, dtype="float64",
+            step_solver="lu", dre_solver="lu",
+        ),
+    )
+    return config4, heat, cavity
+
+
+def driver_phase(v0_np, dev) -> dict:
+    """Phase 10: optcon_nse on the card. Returns each kernel's launches
+    in the config-4 f32 run."""
+    import dataclasses
+
+    import torch
+
+    from optconpy_tpu_torch.ops import conv_kernel, spmm_kernel
+    from optconpy_tpu_torch.optcont import optcon_nse
+    from optconpy_tpu_torch.utils import MetricsLogger
+
+    class StageLog(MetricsLogger):
+        """MetricsLogger that also counts each kernel's launches in every
+        timed stage of the driver."""
+
+        def __init__(self):
+            super().__init__()
+            self.launches = {}
+
+        @contextmanager
+        def timed(self, event, **fields):
+            before = (conv_kernel.launches, spmm_kernel.launches)
+            with super().timed(event, **fields):
+                yield
+            self.launches[event] = (conv_kernel.launches - before[0],
+                                    spmm_kernel.launches - before[1])
+
+    def run(cfg, v0, device):
+        met = StageLog()
+        with tempfile.TemporaryDirectory() as cache:
+            res, wall = sync_time(lambda: optcon_nse(
+                cfg, v0_batch=v0, cache_dir=cache, metrics=met, device=device
+            ))
+        secs = {r["event"]: r["seconds"] for r in met.records
+                if "seconds" in r}
+        s_count = 1 if v0 is None else len(v0)
+        rate = s_count * cfg.time.nts / secs["closed_loop_rollout"]
+        log(f"     {cfg.problem.name} {cfg.solver.dtype} {cfg.solver.step_solver}"
+            f"/{cfg.solver.dre_solver} on {device}, {s_count} scenarios x "
+            f"{cfg.time.nts} steps: wall {wall:.3f} s; stages "
+            f"{ {k: round(v, 4) for k, v in secs.items()} } s; closed loop "
+            f"{rate:.0f} solves/s; cost {res.cost:.6e}")
+        return res, met, rate
+
+    config4, heat, cavity = driver_configs()
+    log(f"[10] optcon_nse on the card (config 4: n={v0_np.shape[1]}, dt "
+        f"{config4.time.dt}, {NTS} steps, {N_SHIFTS} shifts, {N_ADI} ADI, "
+        f"rank {R_MAX}, Newton-Schulz gains, fused step, explicit feedback)")
+    conv_kernel.launches = 0
+    spmm_kernel.launches = 0
+    res32, met32, rate = run(config4, v0_np, dev)
+    launches = {"conv_p2": conv_kernel.launches,
+                "spmm_tile": spmm_kernel.launches}
+    per_stage = met32.launches
+    log(f"     kernel launches by stage (conv_p2, spmm_tile): {per_stage}")
+    check(per_stage["closed_loop_rollout"][0] == NTS,
+          f"conv_p2 launches in the driver's rollout: "
+          f"{per_stage['closed_loop_rollout'][0]} != {NTS}")
+    check(launches["conv_p2"] == NTS,
+          f"conv_p2 launches in the driver: {launches['conv_p2']} != {NTS}")
+    check(per_stage["dre_backward_sweep"][1] > 0,
+          "spmm_tile launched in the driver's DRE stage")
+    s_batch = len(v0_np)
+    check(res32.ys.shape == (s_batch, NTS + 1, 2), "driver ys shape")
+    check(res32.us.shape == (s_batch, NTS, 4), "driver us shape")
+    for name, x in (("ys", res32.ys), ("us", res32.us)):
+        check(bool(np.isfinite(x).all()), f"driver {name} finite")
+    check(bool(torch.isfinite(res32.gains).all()), "driver gains finite")
+    check(np.isfinite(res32.cost), "driver cost finite")
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmul off")
+    check(torch.backends.cudnn.allow_tf32 is False, "TF32 cuDNN off")
+    log(f"     config 4 f32: {rate:.0f} closed-loop solves/s through the "
+        f"driver (phase 5's bare loop is the yardstick); every NS shift "
+        f"certified (the driver raises otherwise)")
+
+    cfg64 = dataclasses.replace(
+        config4, solver=dataclasses.replace(config4.solver, dtype="float64")
+    )
+    res64, _, _ = run(cfg64, v0_np[:S_REF], dev)
+    gain_dev = rel_err(res32.gains.double(), res64.gains)
+    ys_dev = float(np.abs(res32.ys[:S_REF] - res64.ys).max()
+                   / np.abs(res64.ys).max())
+    check(gain_dev <= GAIN_TOL, f"driver f32 vs f64 gains: {gain_dev:.2e}")
+    check(ys_dev <= ROLLOUT_TOL, f"driver f32 vs f64 ys: {ys_dev:.2e}")
+    by_step = {k: rel_err(res32.gains[k].double(), res64.gains[k])
+               for k in (0, NTS // 2, NTS - 6, NTS - 1)}
+    log(f"     config 4 f32 vs f64 ({S_REF} scenarios): gains {gain_dev:.2e}, "
+        f"ys {ys_dev:.2e} (tol {GAIN_TOL:g} and {ROLLOUT_TOL:g}); gains by "
+        f"step {({k: f'{v:.2e}' for k, v in by_step.items()})}")
+
+    for cfg in (heat, cavity):
+        got, _, _ = run(cfg, None, dev)
+        ref, _, _ = run(cfg, None, torch.device("cpu"))
+        devs = {
+            "gains": rel_err(got.gains.cpu(), ref.gains),
+            "ys": float(np.abs(got.ys - ref.ys).max() / np.abs(ref.ys).max()),
+            "us": float(np.abs(got.us - ref.us).max() / np.abs(ref.us).max()),
+            "cost": abs(got.cost - ref.cost) / abs(ref.cost),
+        }
+        check(max(devs.values()) <= DRIVER_TOL,
+              f"{cfg.problem.name} lu tiers card vs CPU: {devs}")
+        log(f"     {cfg.problem.name} lu tiers, card vs CPU: "
+            f"{ {k: f'{v:.2e}' for k, v in devs.items()} } "
+            f"(tol {DRIVER_TOL:g})")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -688,6 +857,12 @@ def main() -> None:
     # --- 9. config 3 ----------------------------------------------------
     spmm_launches = config3_phase(c3_ops, c3_sys64, c3_sched)
 
+    # --- 10. the driver ---------------------------------------------------
+    rng = np.random.default_rng(SEED)
+    driver_launches = driver_phase(
+        vbar[None] + 1e-3 * rng.standard_normal((S_BATCH, n)), dev
+    )
+
     log(json.dumps({"kernels": [
         {
             "name": "conv_p2",
@@ -695,6 +870,7 @@ def main() -> None:
             "source": "optconpy_tpu_torch/csrc/conv_p2.cu",
             "replaces": "optconpy_tpu/ops/pallas_conv.py:74",
             "launches": main_launches,
+            "driver_launches": driver_launches["conv_p2"],
             "max_abs_err": kernel_err,
             "ms": kernel_ms,
             "device_ms": kernel_dev_ms,
@@ -710,6 +886,7 @@ def main() -> None:
             "source": "optconpy_tpu_torch/csrc/spmm_tile.cu",
             "replaces": "optconpy_tpu/ops/pallas_spmm.py:197",
             "launches": spmm_launches,
+            "driver_launches": driver_launches["spmm_tile"],
             "max_abs_err": spmm_err,
             **spmm_head,
         },

@@ -12,15 +12,21 @@ ops/conv_kernel.py) and the sparse-times-dense product of the
 Newton-Schulz inverse build (csrc/spmm_tile.cu, ops/spmm_kernel.py).
 
 Layer map (mirrors optconpy_tpu):
-    ops/       ELL sparse operator, low-rank algebra, the CUDA kernels
-    fem/       host discretization; DAESystem and ConvKernel on tensors
-    solvers/   steady state (host), the shifted-saddle inverse cache and
-               its Newton-Schulz build on the device
+    optcont    the driver optcon_nse: config -> setup -> gains ->
+               feedforward -> batched closed loop, on the card by default
+    ops/       ELL sparse operator, low-rank algebra, host-LU and
+               explicit-inverse caches, the CUDA kernels
+    fem/       host discretization (heat1d, Taylor-Hood); LTISystem,
+               DAESystem and ConvKernel on tensors
+    solvers/   steady state (host), shifted and saddle LU/inverse caches,
+               the Newton-Schulz inverse-stack build on the device
     riccati/   shifts (host), low-rank ADI, Newton-Kleinman, DRE sweep,
                the DRE residual check (host)
-    mpc/       fused Oseen-IMEX closed-loop rollouts
+    control/   costate caches and the feedforward sweep
+    mpc/       closed-loop rollouts: LTI, IMEX step tiers, fused
     models/    driven-cavity and cylinder-wake setups
-    utils/     runtime precision policy
+    utils/     config and its hash, checkpoint cache, metrics, VTK,
+               runtime precision policy
     interop    numpy arrays of reference objects -> port objects
 
 This package imports torch, numpy and scipy, and never jax.

@@ -38,6 +38,10 @@ class DAESystem:
     m_in: int
     p_out: int
 
+    def dense(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Densified (M, A, J) for direct factorizations."""
+        return self.mass.todense(), self.stiff.todense(), self.jmat.todense()
+
     def to(self, device=None, dtype=None) -> "DAESystem":
         return DAESystem(
             self.mass.to(device, dtype),

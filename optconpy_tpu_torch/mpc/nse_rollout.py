@@ -1,16 +1,29 @@
-"""Nonlinear NSE closed-loop rollouts — the fused Oseen-IMEX step.
+"""Nonlinear NSE closed-loop rollouts — IMEX stepping with feedback.
 
-Counterpart of the main-path parts of optconpy_tpu/mpc/nse_rollout.py.
-The steady-state-linearized convection L1(vbar) is implicit and only
-the quadratic remainder N(v)v - L1(vbar) v stays explicit; the whole
-linear part of a step is pre-contracted on the host in f64 into two
-(n, n) matrices, so each step of a scenario batch is two GEMMs, the
-batched convection and a few tall-skinny products. The loop keeps the
-batch last, as the convection kernel reads and writes it.
+Counterpart of optconpy_tpu/mpc/nse_rollout.py for the dense tiers. One
+saddle solve of the implicit block per step (NSEStepCache: a SaddleLU
+or SaddleInverse), explicit convection, feedback gains as tall-skinny
+products. Three IMEX schemes, chosen at build time:
+  * explicit: implicit block [[M/dt - A_stokes, J^T], [J, 0]], the whole
+    convection N(v)v explicit (CFL-limited);
+  * oseen (default): the steady-state-linearized convection L1(vbar)
+    joins the implicit block; only N(v)v - L1(vbar) v stays explicit;
+  * oseen-cn: the trapezoid on the Oseen-linearized part with
+    Adams-Bashforth-2 on the quadratic remainder (CNAB2).
+The fused tier (NSEFusedCache) pre-contracts the whole linear part of
+an Euler step on the host in f64 into two (n, n) matrices, so each step
+of a scenario batch is two GEMMs, the batched convection and a few
+tall-skinny products. Every loop keeps the batch last, (n, S), as the
+convection kernel reads and writes it.
 
 State convention: v is the FREE-dof velocity (Dirichlet values live in
 the ConvKernel); the feedback regulates the perturbation from the
 linearization point vbar:  u_k = -K_k (v_k - vbar) + (1/alpha) B^T w_k.
+
+Step (fv, fp are the BC condensation rhs; L1i is the implicit
+convection, zero for the explicit scheme):
+  [[M/dt - A_stokes + L1i, J^T], [J, 0]] [v+; p]
+      = [M v_k/dt - (N(v_k)v_k - L1i v_k) + B u_k - fv; fp]
 """
 from __future__ import annotations
 
@@ -18,6 +31,87 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+
+@dataclass(frozen=True)
+class NSEStepCache:
+    """Cached IMEX step operators for one (problem, dt) pair.
+
+    lu: SaddleLU or SaddleInverse of the implicit block;
+    l1_imp: (n, n) implicitly-treated convection (zeros for the
+        explicit scheme);
+    fv, fp: BC condensation rhs; vbar: linearization point;
+    rhs_half: None for backward-Euler schemes; for CNAB2 the explicit
+        half of the linear operator, (A_stokes - L1)/2, applied on the
+        rhs each step (the implicit block then carries
+        M/dt - (A_stokes - L1)/2). Its presence selects the scheme.
+    """
+
+    lu: object
+    l1_imp: torch.Tensor
+    fv: torch.Tensor
+    fp: torch.Tensor
+    vbar: torch.Tensor
+    rhs_half: torch.Tensor | None = None
+
+
+def _l1_inner(np_ops, cond, scheme):
+    """The inner implicit convection L1(vbar) (scipy), or None for the
+    explicit scheme."""
+    import scipy.sparse as sp
+
+    from ..fem.taylor_hood import convection_matrices
+
+    if scheme == "explicit":
+        return None
+    l1, _ = convection_matrices(np_ops["full"], np_ops["vbar_full"])
+    return sp.csr_matrix(cond.mat_inner(l1))
+
+
+def build_nse_stepper(
+    np_ops: dict,
+    cond,
+    dt: float,
+    *,
+    device,
+    dtype=torch.float32,
+    scheme: str = "oseen",
+    solver: str = "lu",
+) -> NSEStepCache:
+    """Host builder of the IMEX step cache from the cylinder/cavity setup
+    dict (models/*.py) and the BC condenser.
+
+    scheme: 'oseen' (L1(vbar) implicit, Euler), 'explicit' (convection
+    explicit, Euler) or 'oseen-cn' (CNAB2).
+    solver: 'lu' (host LU, triangular solves on the device) or 'inverse'
+    (host explicit inverse, one GEMM per solve).
+    """
+    from ..solvers.saddle import SaddleInverse, SaddleLU
+
+    if scheme not in ("oseen", "explicit", "oseen-cn"):
+        raise ValueError(f"unknown IMEX scheme: {scheme}")
+    solver_cls = {"lu": SaddleLU, "inverse": SaddleInverse}[solver]
+    full = np_ops["full"]
+    m_i = np_ops["M"]
+    n = m_i.shape[0]
+    l1_sp = _l1_inner(np_ops, cond, scheme)
+    l1_i = np.zeros((n, n)) if l1_sp is None else l1_sp.toarray()
+
+    theta = 0.5 if scheme == "oseen-cn" else 1.0
+    lin = cond.mat_inner(full["A"]).toarray() - l1_i  # implicit linear part
+    imp = m_i.toarray() / dt - theta * lin
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dtype)
+
+    return NSEStepCache(
+        lu=solver_cls.build(dev(imp), dev(np_ops["J"].toarray())),
+        l1_imp=dev(l1_i),
+        fv=dev(cond.mat_bc_rhs(full["A"])),
+        fp=dev(cond.jmat_bc_rhs(full["J"])),
+        vbar=dev(cond.restrict(np_ops["vbar_full"])),
+        rhs_half=dev(0.5 * lin) if scheme == "oseen-cn" else None,
+    )
 
 
 @dataclass(frozen=True)
@@ -57,15 +151,17 @@ def build_nse_fused(
     *,
     device,
     dtype=torch.float32,
+    scheme: str = "oseen",
 ) -> NSEFusedCache:
-    """Host (numpy f64) build of the fused Oseen-IMEX step cache, with
-    L1(vbar) implicit; each array crosses to `device`/`dtype` once at
-    the end."""
+    """Host (numpy f64) build of the fused IMEX step cache, Euler in time
+    with L1(vbar) implicit ('oseen') or the whole convection explicit
+    ('explicit'); each array crosses to `device`/`dtype` once at the
+    end."""
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
 
-    from ..fem.taylor_hood import convection_matrices
-
+    if scheme not in ("oseen", "explicit"):
+        raise ValueError(f"unknown IMEX scheme: {scheme}")
     full = np_ops["full"]
     m_sp = sp.csr_matrix(np_ops["M"])
     m_i = np.asarray(m_sp.toarray(), dtype=np.float64)
@@ -74,8 +170,9 @@ def build_nse_fused(
     n = m_i.shape[0]
     n_p = j_sp.shape[0]
 
-    l1, _ = convection_matrices(full, np_ops["vbar_full"])
-    l1_sp = sp.csr_matrix(cond.mat_inner(l1))
+    l1_sp = _l1_inner(np_ops, cond, scheme)
+    if l1_sp is None:
+        l1_sp = sp.csr_matrix((n, n))
     l1_i = np.asarray(l1_sp.toarray(), dtype=np.float64)
 
     # Sparse LU, explicit inverse by solving against I; f64 host.
@@ -158,6 +255,89 @@ def batched_nse_closed_loop_fused(
     return vs.permute(2, 0, 1), us.permute(2, 0, 1), ys.permute(2, 0, 1)
 
 
+def _nse_loop_columns(sys, conv, cache: NSEStepCache, ks, ws, v0, alpha,
+                     dt, feedback):
+    """The IMEX closed loop on batch-last states v0 (n, S); returns
+    time-major (vs (nts+1, n, S), us (nts, m, S), ys (nts+1, p, S))."""
+    if feedback not in ("explicit", "implicit"):
+        raise ValueError(f"unknown feedback mode: {feedback}")
+    b, bt = sys.b, sys.b.T
+    vbar = cache.vbar[:, None]
+    fv = cache.fv[:, None]
+    fp = cache.fp[:, None].expand(-1, v0.shape[1])
+    cn = cache.rhs_half is not None
+
+    def q_of(v):
+        return conv.conv_inner_batch_t(v) - cache.l1_imp @ v
+
+    def rhs_base(v, q, q_prev):
+        r = sys.mass.matmat(v) / dt - fv
+        if cn:
+            r = r + cache.rhs_half @ v - (1.5 * q - 0.5 * q_prev)
+        else:
+            r = r - q
+        return r
+
+    if feedback == "implicit":
+        n_p = cache.fp.shape[0]
+        gmat = cache.lu.apply(b, b.new_zeros((n_p, sys.m_in)))  # constant
+        eye_m = torch.eye(sys.m_in, dtype=b.dtype, device=b.device)
+    v = v0
+    q_prev = q_of(v0)  # AB2 seed: q_{-1} := q_0 (first step = CNAB1)
+    vs, us = [v], []
+    for k_gain, w_k in zip(ks[:-1], ws[:-1]):
+        uff = ((bt @ w_k) / alpha)[:, None]
+        q = q_of(v)
+        if feedback == "implicit":
+            rhs_v = rhs_base(v, q, q_prev) + b @ (uff + k_gain @ vbar)
+            x0 = cache.lu.apply(rhs_v, fp)
+            corr = torch.linalg.solve(eye_m + k_gain @ gmat, k_gain @ x0)
+            v_next = x0 - gmat @ corr
+            u = -(k_gain @ (v_next - vbar)) + uff
+        else:
+            u = -(k_gain @ (v - vbar)) + uff
+            v_next = cache.lu.apply(rhs_base(v, q, q_prev) + b @ u, fp)
+        v, q_prev = v_next, q
+        vs.append(v)
+        us.append(u)
+    vs = torch.stack(vs)
+    return vs, torch.stack(us), sys.c @ vs
+
+
+def nse_closed_loop_rollout(
+    sys,
+    conv,
+    cache: NSEStepCache,
+    ks: torch.Tensor,
+    ws: torch.Tensor,
+    v0: torch.Tensor,
+    alpha: float,
+    dt: float,
+    feedback: str = "explicit",
+):
+    """Nonlinear closed loop of one scenario; returns (vs (nts+1, n),
+    us (nts, m), ys (nts+1, p)).
+
+    sys: DAESystem whose stiff is the LINEARIZED operator (for gains);
+    mass/b/c are shared with the nonlinear plant.
+    ks: (nts+1, m, n); ws: (nts+1, n) feedforward states; v0: (n,).
+
+    feedback='explicit': u_k from the current state v_k.
+    feedback='implicit': u_k = -K_k (v_{k+1} - vbar) + ff, with B K_k
+    folded into the implicit solve via SMW on the cached saddle solver;
+    G = lu^-1 B is constant, so the extra cost is one (m, m) solve a step.
+
+    A cache built with scheme='oseen-cn' (rhs_half present) runs CNAB2:
+    the rhs gains (A_stokes - L1)/2 v and the quadratic remainder
+    q(v) = N(v)v - L1 v extrapolates as 1.5 q_k - 0.5 q_{k-1}, with
+    q_{-1} := q_0 (the first step is CNAB1).
+    """
+    vs, us, ys = _nse_loop_columns(
+        sys, conv, cache, ks, ws, v0[:, None], alpha, dt, feedback
+    )
+    return vs[..., 0], us[..., 0], ys[..., 0]
+
+
 def batched_nse_closed_loop(
     sys,
     conv,
@@ -169,22 +349,29 @@ def batched_nse_closed_loop(
     dt: float,
     feedback: str = "explicit",
 ):
-    """Closed loop over the scenario initial states v0_batch (S, n).
+    """Closed loop over the scenario initial states v0_batch (S, n), all
+    scenarios as the columns of one solve per step. Returns
+    scenario-major (vs (S, nts+1, n), us (S, nts, m), ys (S, nts+1, p)).
 
-    Dispatches an NSEFusedCache to batched_nse_closed_loop_fused; other
-    step caches are not ported yet and raise. The fused cache bakes dt
-    into pmat/c0 at build time, so the passed dt must match it.
+    An NSEFusedCache dispatches to batched_nse_closed_loop_fused; it
+    bakes dt into pmat/c0 at build time, so the passed dt must match it.
+    An NSEStepCache runs the IMEX loop of nse_closed_loop_rollout.
     """
-    if not isinstance(cache, NSEFusedCache):
+    if isinstance(cache, NSEFusedCache):
+        if abs(cache.dt - dt) > 1e-12 * max(abs(dt), 1e-30):
+            raise ValueError(
+                f"dt={dt} disagrees with NSEFusedCache build dt={cache.dt}; "
+                f"rebuild the cache for this dt"
+            )
+        return batched_nse_closed_loop_fused(
+            sys, conv, cache, ks, ws, v0_batch, alpha, feedback
+        )
+    if not isinstance(cache, NSEStepCache):
         raise TypeError(
-            f"batched_nse_closed_loop takes an NSEFusedCache, got "
-            f"{type(cache).__name__}"
+            f"batched_nse_closed_loop takes an NSEFusedCache or an "
+            f"NSEStepCache, got {type(cache).__name__}"
         )
-    if abs(cache.dt - dt) > 1e-12 * max(abs(dt), 1e-30):
-        raise ValueError(
-            f"dt={dt} disagrees with NSEFusedCache build dt={cache.dt}; "
-            f"rebuild the cache for this dt"
-        )
-    return batched_nse_closed_loop_fused(
-        sys, conv, cache, ks, ws, v0_batch, alpha, feedback
+    vs, us, ys = _nse_loop_columns(
+        sys, conv, cache, ks, ws, v0_batch.T, alpha, dt, feedback
     )
+    return vs.permute(2, 0, 1), us.permute(2, 0, 1), ys.permute(2, 0, 1)

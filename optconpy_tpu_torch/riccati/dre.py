@@ -8,7 +8,9 @@ with the CONSTANT time-shifted matrix  Atil = A - M/(2 dt)  and constant
 term  C^T C + M^T X_{k+1} M / dt. Because Atil is time-independent, one
 shifted-saddle inverse stack serves the whole sweep; each step runs a
 warm-started Newton-ADI with the previous step's gain. Counterpart of
-the main-path parts of optconpy_tpu/riccati/dre.py.
+optconpy_tpu/riccati/dre.py for the dense tiers: host LU or explicit
+inverse per shift ('lu', 'inverse'), unconstrained (LTI) or saddle, and
+the saddle inverse stack built on the device by Newton-Schulz.
 """
 from __future__ import annotations
 
@@ -18,10 +20,37 @@ import os
 import numpy as np
 import torch
 
-from .. import __version__
-from ..solvers.saddle import SaddleShiftedInverseCache
+from ..solvers.saddle import (
+    SaddleShiftedInverseCache,
+    SaddleShiftedLUCache,
+)
+from ..solvers.shifted import ShiftedInverseCache, ShiftedLUCache
+from ..utils.cache import cache_root, code_salt
 from . import shifts as shiftmod
 from .newton_kleinman import newton_adi_are
+
+
+def _schedule(a_min, a_max, dt, num_shifts, n_adi):
+    """(sig, sigma_seq, idx_seq): Wachspress shifts over the DRE-shifted
+    interval and the cycled per-iteration schedule (values + indices)."""
+    a_min_s, a_max_s = shiftmod.dre_shifted_interval(a_min, a_max, dt)
+    sig = shiftmod.wachspress_shifts(a_min_s, a_max_s, num_shifts)
+    idx = np.arange(num_shifts, dtype=np.int32)
+    return (
+        sig,
+        shiftmod.cycled_shifts(sig, n_adi),
+        shiftmod.cycled_shifts(idx, n_adi),
+    )
+
+
+def dre_shift_schedule(
+    a_np, m_np, dt: float, num_shifts: int = 12, n_adi: int = 24,
+):
+    """Host shift setup for the unconstrained DRE: the spectral interval
+    of (A, M), time-shifted analytically. Returns (sig, sigma_seq,
+    idx_seq)."""
+    a_min, a_max = shiftmod.spectral_interval(a_np, m_np)
+    return _schedule(a_min, a_max, dt, num_shifts, n_adi)
 
 
 def dre_shift_schedule_dae(
@@ -39,11 +68,56 @@ def dre_shift_schedule_dae(
         a_min, a_max = shiftmod.spectral_interval_dae(a_np, m_np, j_np)
     else:
         a_min, a_max = shiftmod.spectral_interval_dae_cheap(a_np, m_np)
-    a_min_s, a_max_s = shiftmod.dre_shifted_interval(a_min, a_max, dt)
-    sig = shiftmod.wachspress_shifts(a_min_s, a_max_s, num_shifts)
-    idx = np.arange(num_shifts, dtype=np.int32)
-    reps = int(np.ceil(n_adi / num_shifts))
-    return sig, np.tile(sig, reps)[:n_adi], np.tile(idx, reps)[:n_adi]
+    return _schedule(a_min, a_max, dt, num_shifts, n_adi)
+
+
+def _shifts_as(sig, like: torch.Tensor) -> torch.Tensor:
+    """The shifts rounded to the cache dtype, as the reference passes
+    them to its builders."""
+    return torch.as_tensor(np.asarray(sig, np.float64)).to(like.dtype)
+
+
+def build_dre_cache(sys, dt: float, sig, solver: str = "lu"):
+    """Shifted cache of (Atil^T + sigma_j M), Atil = A - M/(2 dt), for an
+    LTISystem, on its device in its dtype. solver: 'lu' (triangular
+    solves) or 'inverse' (one GEMM per solve)."""
+    m_d, a_d = sys.dense()
+    at_til = a_d.T - m_d / (2.0 * dt)  # M symmetric
+    cls = {"lu": ShiftedLUCache, "inverse": ShiftedInverseCache}[solver]
+    return cls.build(at_til, m_d, _shifts_as(sig, at_til))
+
+
+def build_dre_cache_dae(
+    sys, dt: float, sig, solver: str = "lu",
+    cache_key: str | None = None, cache_dir: str | None = None,
+):
+    """Shifted saddle cache of [[Atil^T + sigma M, J^T], [J, 0]] on sys's
+    device in sys's dtype.
+
+    solver: 'lu' (dense host LU per shift) or 'inverse' (velocity-block
+    inverses from sparse LU, load_or_build_inverse_stack; with a
+    cache_key the stack is stored under cache_dir and reloaded).
+    """
+    from ..ops.sparse import ell_to_scipy
+
+    if solver == "inverse":
+        m_sp = ell_to_scipy(sys.mass)
+        a_sp = ell_to_scipy(sys.stiff)
+        j_sp = ell_to_scipy(sys.jmat)
+        at_til_sp = (a_sp.T - m_sp / (2.0 * dt)).tocsr()
+        inv_np, _src = load_or_build_inverse_stack(
+            at_til_sp, m_sp, j_sp, np.asarray(sig),
+            torch.empty((), dtype=sys.b.dtype).numpy().dtype,
+            cache_key=cache_key, cache_dir=cache_dir,
+        )
+        return SaddleShiftedInverseCache(
+            torch.as_tensor(inv_np).to(sys.b.device), sys.n
+        )
+    if solver != "lu":
+        raise ValueError(f"unknown DRE cache solver: {solver}")
+    m_d, a_d, j_d = sys.dense()
+    at_til = a_d.T - m_d / (2.0 * dt)
+    return SaddleShiftedLUCache.build(at_til, m_d, j_d, _shifts_as(sig, at_til))
 
 
 def _fingerprint(mat):
@@ -89,11 +163,9 @@ def load_or_build_inverse_stack(
         digest = inverse_stack_digest(
             at_til_sp, m_sp, j_sp, sig, dtype, cache_key
         )
-        d = cache_dir or os.environ.get(
-            "OPTCONPY_TPU_CACHE", os.path.join(os.getcwd(), "data")
+        path = os.path.join(
+            cache_root(cache_dir), f"dreinv_{digest}-{code_salt()}.npy"
         )
-        salt = "torch-v" + __version__.replace(".", "_")
-        path = os.path.join(d, f"dreinv_{digest}-{salt}.npy")
         if os.path.exists(path):
             return np.load(path), "disk"
     inv_np = SaddleShiftedInverseCache.build_sparse_host(
@@ -135,7 +207,7 @@ def build_dre_cache_dae_ns(
 
 def dre_backward_sweep(
     sys,
-    cache: SaddleShiftedInverseCache,
+    cache,
     alpha: float,
     dt: float,
     nts: int,
@@ -150,7 +222,9 @@ def dre_backward_sweep(
         (zs[nts] = terminal = 0),
     ks: (nts + 1, m, n) feedback gains K_k = (1/alpha) B^T X_k M.
 
-    sigma_seq / idx_seq: the cycled ADI schedule (numpy or tensors).
+    cache: any shifted cache with solve_smw(i, u, v, rhs) (the LTI or
+    saddle LU and inverse caches). sigma_seq / idx_seq: the cycled ADI
+    schedule (numpy or tensors).
     Warm start: each step's Newton begins from the previous (later-time)
     step's gain; the terminal step's from zero.
     """

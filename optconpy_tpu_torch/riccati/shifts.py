@@ -1,15 +1,44 @@
 """ADI shift selection — offline, on the host (numpy/scipy).
 
-The parts of optconpy_tpu/riccati/shifts.py that the DRE shift schedule
-reaches, with the same math: the spectral interval of the projected
-pencil, shifted by 1/(2 dt) analytically for the DRE's time-shifted
-pencil, and Wachspress-optimal real log-spaced shifts over it.
+The parts of optconpy_tpu/riccati/shifts.py that the DRE shift
+schedules reach, with the same math: the spectral interval of the
+pencil (unconstrained) or of the projected pencil (constrained), shifted
+by 1/(2 dt) analytically for the DRE's time-shifted pencil, and
+Wachspress-optimal real log-spaced shifts over it.
 """
 from __future__ import annotations
 
 import numpy as np
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
+
+
+def spectral_interval(a, m) -> tuple[float, float]:
+    """[lo, hi] of |Re lambda| for the stable pencil (A, M), A ~ Hurwitz:
+    the eigenvalues of M^{-1} A lie in [-a_max, -a_min] (symmetric case).
+    Dense eigenvalues for n <= 600, ARPACK extremes above."""
+    n = a.shape[0]
+    if n <= 600:
+        lam = np.linalg.eigvals(
+            np.linalg.solve(
+                m.toarray() if sp.issparse(m) else np.asarray(m),
+                a.toarray() if sp.issparse(a) else np.asarray(a),
+            )
+        )
+        re = -np.real(lam)
+    else:
+        a_s = sp.csc_matrix(a)
+        m_s = sp.csc_matrix(m)
+        # Largest-magnitude and smallest-magnitude generalized eigenvalues.
+        lam_big = spla.eigs(
+            a_s, k=1, M=m_s, which="LM", return_eigenvectors=False
+        )
+        lam_small = spla.eigs(
+            a_s, k=1, M=m_s, sigma=0.0, which="LM", return_eigenvectors=False
+        )
+        re = -np.real(np.concatenate([lam_big, lam_small]))
+    re = re[re > 0]
+    return float(re.min()), float(re.max())
 
 
 def _nullspace_basis(j_sp, m_sp) -> np.ndarray:
@@ -63,6 +92,12 @@ def wachspress_shifts(a_min: float, a_max: float, num: int) -> np.ndarray:
     j = np.arange(1, num + 1)
     ratio = max(a_max / a_min, 1.0 + 1e-12)
     return -a_min * ratio ** ((2 * j - 1) / (2 * num))
+
+
+def cycled_shifts(shifts: np.ndarray, n_iter: int) -> np.ndarray:
+    """Repeat the shift set cyclically to a full ADI iteration schedule."""
+    reps = int(np.ceil(n_iter / len(shifts)))
+    return np.tile(shifts, reps)[:n_iter]
 
 
 def dre_shifted_interval(

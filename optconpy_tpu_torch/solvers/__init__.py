@@ -1,2 +1,2 @@
-"""solvers/ — steady state (host), shifted-saddle solves and the
-Newton-Schulz inverse-stack build."""
+"""solvers/ — steady state (host), shifted and saddle LU/inverse caches
+and the Newton-Schulz inverse-stack build."""

@@ -8,6 +8,7 @@ only on a card: tests/test_torch_cuda.py holds its tests.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 from optconpy_tpu.fem.device_conv import ConvKernel as JConvKernel
@@ -29,9 +30,18 @@ def _rel(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_host_thread():
+    """One torch and one BLAS thread for the module: host BLAS/LAPACK
+    work runs many times slower when busy-waiting BLAS threads share
+    the cores with other test workers."""
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(1):
+        yield
+
+
 @pytest.fixture(scope="module")
 def kernels():
-    torch.set_num_threads(1)
     with pytest.MonkeyPatch.context() as mp:
         # the reference's numpy element path, the port's only one
         mp.setattr(j_native, "available", lambda: False)

@@ -13,7 +13,15 @@ of the rollout, and the NS pencil's operators (Atil^T, M, J, J^T in RCM
 order) at the widths of the NS build, plus ragged edges (last column
 tiles, a small operator with an empty row). Each kernel must match its plain torch
 version to 1e-5 relative in float32 (and the SpMM to 1e-12 in float64).
+
+The driver's host-LU solvers apply their factors on the card with
+torch.linalg.lu_solve (1-based pivots): on the card they must match the
+same factors applied on the CPU to 1e-12 in f64, and the driven-cavity
+driver (tests/test_optcont_driver.py's CFG) on the card must match its
+CPU run to 1e-10. Its fused f32 run launches the convection kernel once
+a step; its Newton-Schulz gain tier launches the SpMM kernel.
 """
+import dataclasses
 from dataclasses import replace
 
 import numpy as np
@@ -25,6 +33,17 @@ from optconpy_tpu_torch.fem.device_conv import ConvKernel, FusedConvKernel
 from optconpy_tpu_torch.models.cylinder import cylinder_setup
 from optconpy_tpu_torch.ops import conv_kernel, spmm_kernel
 from optconpy_tpu_torch.fem.dae import dae_from_scipy
+from optconpy_tpu_torch.models.cavity import cavity_stokes_setup
+from optconpy_tpu_torch.ops.dense import LUSolver
+from optconpy_tpu_torch.optcont import optcon_nse
+from optconpy_tpu_torch.solvers.saddle import SaddleLU
+from optconpy_tpu_torch.utils import (
+    CostConfig,
+    OptConConfig,
+    ProblemConfig,
+    SolverConfig,
+    TimeConfig,
+)
 from optconpy_tpu_torch.riccati import (
     build_dre_cache_dae_ns,
     dre_backward_sweep,
@@ -309,3 +328,76 @@ def test_ns_stack_and_gains_repeat_bit_for_bit(cylinder):
     assert res_a == res_b
     assert torch.equal(inv_a, inv_b)
     assert torch.equal(ks_a, ks_b)
+
+
+# --- the driver's solvers and the driver on the card ------------------------
+
+CAVITY_CFG = OptConConfig(  # tests/test_optcont_driver.py CFG
+    problem=ProblemConfig(name="drivencavity", nx=6),
+    time=TimeConfig(t0=0.0, t_end=0.4, nts=20),
+    cost=CostConfig(alpha=1e-8, ystar="steady_offset", ystar_amp=0.01),
+    solver=SolverConfig(
+        num_shifts=8, n_adi=20, n_newton=2, r_max=30, dtype="float64"
+    ),
+)
+
+
+@pytest.fixture(scope="module")
+def gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the driver runs on the card")
+    return torch.device("cuda", 0)
+
+
+def _rel_np(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+@pytest.mark.parametrize("which", ["LUSolver", "SaddleLU"])
+def test_lu_solvers_on_card_match_cpu(gpu, which):
+    """Host factors applied on the card and on the CPU: a pivot in the
+    wrong convention would give wrong solves without an error."""
+    rng = np.random.default_rng(5)
+    if which == "LUSolver":
+        a = rng.standard_normal((300, 300))
+        a[[0, 9]] = a[[9, 0]] * 1e-3  # row interchanges from the start
+        solvers = [LUSolver.factor(torch.as_tensor(a), device=d)
+                   for d in (gpu, CPU)]
+        rhs = rng.standard_normal((300, 7))
+    else:
+        ops, _, _ = cavity_stokes_setup(nx=6, device=CPU)
+        f = torch.as_tensor(ops["M"].toarray() / 0.02 - ops["A"].toarray())
+        j = torch.as_tensor(ops["J"].toarray())
+        solvers = [SaddleLU.build(f.to(d), j.to(d)) for d in (gpu, CPU)]
+        rhs = rng.standard_normal((f.shape[0], 7))
+    card, host = solvers
+    assert card.piv.is_cuda and card.piv.dtype == torch.int32
+    assert torch.equal(card.piv.cpu(), host.piv)
+    x = torch.as_tensor(rhs)
+    got = card.apply(x.to(gpu))
+    assert _rel(got.cpu(), host.apply(x)) <= 1e-12
+    assert _rel(card.apply(x[:, 0].to(gpu)).cpu(), host.apply(x[:, 0])) <= 1e-12
+
+
+def test_cavity_driver_on_card_matches_cpu(gpu, tmp_path):
+    got = optcon_nse(CAVITY_CFG, cache_dir=str(tmp_path / "card"), device=gpu)
+    ref = optcon_nse(CAVITY_CFG, cache_dir=str(tmp_path / "cpu"), device=CPU)
+    assert got.gains.is_cuda
+    assert _rel(got.gains.cpu(), ref.gains) <= 1e-10
+    for a, b in ((got.ys, ref.ys), (got.us, ref.us)):
+        assert _rel_np(a, b) <= 1e-10
+    assert abs(got.cost - ref.cost) <= 1e-10 * abs(ref.cost)
+
+
+@pytest.mark.parametrize("dre_solver", ["inverse", "inverse_ns"])
+def test_fused_f32_driver_launches_kernels(gpu, tmp_path, dre_solver):
+    cfg = dataclasses.replace(CAVITY_CFG, solver=dataclasses.replace(
+        CAVITY_CFG.solver, dtype="float32", step_solver="fused",
+        dre_solver=dre_solver,
+    ))
+    conv0, spmm0 = conv_kernel.launches, spmm_kernel.launches
+    res = optcon_nse(cfg, v0_batch=None, cache_dir=str(tmp_path), device=gpu)
+    assert conv_kernel.launches - conv0 == cfg.time.nts
+    assert (spmm_kernel.launches - spmm0 > 0) == (dre_solver == "inverse_ns")
+    assert np.isfinite(res.ys).all() and np.isfinite(res.us).all()

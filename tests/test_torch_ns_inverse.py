@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.sparse as sp
+import threadpoolctl
 import torch
 
 from optconpy_tpu.models.cavity import cavity_stokes_setup as j_cavity_setup
@@ -47,9 +48,18 @@ def _pencil(ops):
     return at, m, sp.csr_matrix(ops["J"])
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_host_thread():
+    """One torch and one BLAS thread for the module: host BLAS/LAPACK
+    work runs many times slower when busy-waiting BLAS threads share
+    the cores with other test workers."""
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(1):
+        yield
+
+
 @pytest.fixture(scope="module")
 def cavity():
-    torch.set_num_threads(1)
     with pytest.MonkeyPatch.context() as mp:
         # the reference's numpy element path, the port's only one
         mp.setattr(j_native, "available", lambda: False)

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.sparse as sp
+import threadpoolctl
 import torch
 
 from optconpy_tpu.models.cylinder import cylinder_setup as j_cylinder_setup
@@ -45,9 +46,18 @@ def _at_til(ops):
     return (ops["A"].T - ops["M"] / (2.0 * DT)).tocsr()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_host_thread():
+    """One torch and one BLAS thread for the module: host BLAS/LAPACK
+    work runs many times slower when busy-waiting BLAS threads share
+    the cores with other test workers."""
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(1):
+        yield
+
+
 @pytest.fixture(scope="module")
 def riccati():
-    torch.set_num_threads(1)
     with pytest.MonkeyPatch.context() as mp:
         # the reference's numpy element path, the port's only one
         mp.setattr(j_native, "available", lambda: False)

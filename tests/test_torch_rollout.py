@@ -11,6 +11,7 @@ and gains through interop, agrees to 1e-10.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 from optconpy_tpu.fem.device_conv import ConvKernel as JConvKernel
@@ -87,9 +88,18 @@ def _port_slice(ops, sys, cond):
                                      dtype=torch.float64)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_host_thread():
+    """One torch and one BLAS thread for the module: host BLAS/LAPACK
+    work runs many times slower when busy-waiting BLAS threads share
+    the cores with other test workers."""
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(1):
+        yield
+
+
 @pytest.fixture(scope="module")
 def slices():
-    torch.set_num_threads(1)
     with pytest.MonkeyPatch.context() as mp:
         # the reference's numpy element path, the port's only one
         mp.setattr(j_native, "available", lambda: False)

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.sparse as sp
+import threadpoolctl
 import torch
 
 from optconpy_tpu.models.cavity import cavity_stokes_setup as j_cavity_setup
@@ -54,9 +55,18 @@ def _ordered(at, m, j, rcm, sort_rows):
     return perm, p_perm, ops
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_host_thread():
+    """One torch and one BLAS thread for the module: host BLAS/LAPACK
+    work runs many times slower when busy-waiting BLAS threads share
+    the cores with other test workers."""
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(1):
+        yield
+
+
 @pytest.fixture(scope="module")
 def cylinder():
-    torch.set_num_threads(1)
     t_ops, _, _ = t_cylinder_setup(re=100.0, refinement=1, device=CPU)
     _, _, ops = _ordered(
         *_pencil(t_ops, DT), spmm_kernel.rcm_permutation,
