@@ -46,10 +46,29 @@ the card. Phases:
      in f64 on the first 2 scenarios: f32 vs f64 gains and outputs
      <= 1e-4; (c) configs 1 (heat1d) and 2 (driven cavity) on the lu
      tiers on the card against device="cpu" (<= 1e-10). Each run's stage
-     seconds and closed-loop solves/s are printed.
+     seconds and closed-loop solves/s are printed;
+ 11. the matrix-free tier (block-Jacobi / pressure-Schur FGMRES over the
+     SpMM kernel), run beside the phases whose inputs it shares:
+     (a) after phase 8, at the bench shape in f64: 12 ADI iterations
+     through SaddleMatfreeCache (tol 1e-11) vs the same iterations
+     through phase 4's host inverse stack (<= 1e-6), and the matrix-free
+     stepper (tol 1e-12) vs the lu stepper, 3 scenarios x 6 steps in both
+     feedback modes (v, u, y <= 1e-7); (b) after phase 9, config 3 in
+     f32 at full width: the matrix-free DRE sweep (FGMRES tol 1.05e-4, 8
+     cycles) vs phase 9's f64 NS gains (<= 1e-3) with the projected DRE
+     residual at step 0 (<= 1e-2), K1 at B=16 vs plain (<= 1e-5), and
+     the matrix-free closed loop, 16 scenarios x 100 steps, implicit
+     feedback, controlled and uncontrolled (energy ratio at T < 0.5, K1
+     101 launches a rollout), with profiler listings of one ADI solve and
+     one rollout step; (c) inside phase 10, the cavity on the matrix-free
+     step and DRE tiers over 4 of its 20 steps, card vs CPU (<= 1e-8);
+     (d) after phase 3,
+     QuadConvKernel at B=1024 in f32 (4 SpMM launches a call) vs
+     ConvKernel's plain version (<= 1e-5), timed beside K1.
 
 Every failed check raises, so the exit code is non-zero. The last three
-lines are the kernels JSON, the card's name and power limit, and
+lines are the kernels JSON (each kernel's launches on every path it
+serves), the card's name and power limit, and
 {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py
@@ -105,6 +124,28 @@ SPMM_TOL = {"float32": 1e-5, "float64": 1e-12}  # kernel vs plain, relative
 # bench's loop; (b) repeats it in f64 on the first S_REF scenarios.
 YSTAR_AMP = 0.01
 DRIVER_TOL = 1e-10  # lu tiers, card vs CPU, f64
+
+# Phase 11: the matrix-free tier. (a) at the bench shape in f64 against
+# the dense tiers (the reference's tests/test_matfree.py bounds); (b) at
+# config 3 in f32 (scripts/config3_cylinder.py: FGMRES tolerance a
+# quarter of the ADI truncation floor 4.2e-4, 8 cycles in the DRE and 10
+# in the rollout, 16 scenarios x 100 steps, energy ratio < 0.5); (c) the
+# cavity driver on the matrix-free tiers, card vs CPU.
+MATFREE_WIDTHS = (46, 16, 4)  # the ADI block p + r_max + m, the rollout, SMW
+MF_BLOCK = 512
+MF_ADI_ITERS = 12
+MF_ADI_TOL, MF_ADI_DEV = 1e-11, 1e-6  # FGMRES tolerance, vs the inverse stack
+MF_ADI_CYCLES = 20
+MF_STEP_TOL, MF_STEP_CYCLES, MF_STEP_DEV = 1e-12, 15, 1e-7
+MF_STEP_S, MF_STEP_NTS = 3, 6
+C3_FGMRES_TOL = 4.2e-4 / 4.0
+C3_DRE_CYCLES, C3_ROLL_CYCLES = 8, 10
+C3_ROLL_S, C3_ROLL_NTS = 16, 100
+MF_GAIN_TOL = 1e-3  # f32 matrix-free vs f64 NS gains: 10x the FGMRES tol
+ENERGY_RATIO_MAX = 0.5
+MF_DRIVER_TOL = 1e-8  # cavity matfree tiers, card vs CPU, f64
+MF_DRIVER_FGMRES = 1e-11
+MF_DRIVER_NTS = 4  # of config 2's 20 steps
 
 # Times of the kernels this port replaced, on an NVIDIA H100 80GB HBM3 at
 # 700 W (PERF.md), printed beside this run's: the first convection kernel
@@ -172,8 +213,9 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 
 def kernel_split(fn):
     """Run fn once under torch.profiler. Returns {kernel name: [calls,
-    device us]} for the device activity it traced and the wall seconds
-    of the window (fn ends in a synchronize)."""
+    device us]} for the device activity it traced, the wall seconds of
+    the window (fn ends in a synchronize) and the host's reads of device
+    values in it (aten::_local_scalar_dense, each a synchronize)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -183,13 +225,15 @@ def kernel_split(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = {}
+    rows, host_reads = {}, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             row = rows.setdefault(e.name, [0, 0.0])
             row[0] += 1
             row[1] += e.time_range.elapsed_us()
-    return rows, wall
+        elif e.name == "aten::_local_scalar_dense":
+            host_reads += 1
+    return rows, wall, host_reads
 
 
 def card_line() -> str:
@@ -234,8 +278,10 @@ def pack_csr(a):
 
 def spmm_phase(c3_ops, dev):
     """Phase 7: the SpMM kernel vs its plain version and torch.sparse.mm
-    on the config-3 NS pencil's operators. Returns the JSON fields of
-    Atil^T at the NS width in float32, and the largest absolute error."""
+    on the config-3 NS pencil's operators, at the NS width and the
+    matrix-free tier's widths. Returns the JSON fields of Atil^T at the
+    NS width in float32 (with its times at the matrix-free widths), and
+    the largest absolute error."""
     import torch
 
     from optconpy_tpu_torch.ops import spmm_kernel
@@ -244,10 +290,10 @@ def spmm_phase(c3_ops, dev):
     at_til = (c3_ops["A"].T - c3_ops["M"] / (2.0 * C3_DT)).tocsr()
     gen = torch.Generator(dev).manual_seed(SEED)
     props = torch.cuda.get_device_properties(dev)
-    head, max_abs = None, 0.0
+    head, max_abs, narrow = None, 0.0, {}
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).removeprefix("torch.")
-        pack, _ = SaddleOpsPack.build(
+        pack, _, _ = SaddleOpsPack.build(
             at_til, c3_ops["M"], c3_ops["J"], device=dev, dtype=dtype
         )
         nn = pack.n + pack.n_p
@@ -256,7 +302,7 @@ def spmm_phase(c3_ops, dev):
             m_rows, n_cols = a.shape
             nnz = a.nnz
             lib_a = pack_csr(a)
-            for b in (nn, 8, 1):
+            for b in (nn, 46, 16, 8, 4, 1):
                 x = torch.randn((n_cols, b), generator=gen, dtype=dtype,
                                 device=dev)
                 y = spmm_kernel.spmm(a, x)
@@ -300,6 +346,9 @@ def spmm_phase(c3_ops, dev):
                     f"{l_ms:.4f} ms (rel err {lib_err:.1e}); bound "
                     f"{bnd[0]:.4f} ms ({bnd[1]}) = {bnd[0] / k_ms:.0%} of "
                     f"the kernel's time{earlier}")
+                if name == "at" and b in MATFREE_WIDTHS and dtype == torch.float32:
+                    narrow[b] = {"ms": k_ms, "library_ms": l_ms,
+                                 "bound_ms": bnd[0], "bound_by": bnd[1]}
                 if name == "at" and wide and dtype == torch.float32:
                     head = {
                         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
@@ -309,6 +358,7 @@ def spmm_phase(c3_ops, dev):
                     }
                 del x, y, ref
         del pack
+    head["at_matfree_widths"] = narrow
     return head, max_abs
 
 
@@ -354,7 +404,7 @@ def bench_ns_phase(sys32, cache64, ks64, sig, sseq, iseq):
 
 def config3_phase(c3_ops, sys64, sched) -> int:
     """Phase 9: config 3 on the NS tier. Returns the SpMM kernel's
-    launches in the f32 NS build."""
+    launches in the f32 NS build and the f64 NS gains."""
     import torch
 
     from optconpy_tpu_torch.ops import spmm_kernel
@@ -450,7 +500,7 @@ def config3_phase(c3_ops, sys64, sched) -> int:
         f"{ {k: f'{v:.2e}' for k, v in residuals.items()} } (tol "
         f"{DRE_RES_TOL:g}, host f64 {time.perf_counter() - t0:.1f} s); "
         f"f32 vs f64 gain deviation {gain_dev:.2e} (tol {GAIN_TOL:g})")
-    return launches
+    return launches, ks64
 
 
 def driver_configs():
@@ -497,9 +547,10 @@ def driver_configs():
     return config4, heat, cavity
 
 
-def driver_phase(v0_np, dev) -> dict:
-    """Phase 10: optcon_nse on the card. Returns each kernel's launches
-    in the config-4 f32 run."""
+def driver_phase(v0_np, dev):
+    """Phase 10 and 11 (c): optcon_nse on the card. Returns each kernel's
+    launches in the config-4 f32 run, K2's in the cavity's matrix-free
+    run, and the seconds of (c)."""
     import dataclasses
 
     import torch
@@ -601,7 +652,313 @@ def driver_phase(v0_np, dev) -> dict:
         log(f"     {cfg.problem.name} lu tiers, card vs CPU: "
             f"{ {k: f'{v:.2e}' for k, v in devs.items()} } "
             f"(tol {DRIVER_TOL:g})")
+
+    # (c) of phase 11: the cavity on the matrix-free tiers ('auto' picks
+    # the matrix-free DRE tier beside the matrix-free step tier), cut to
+    # its first MF_DRIVER_NTS steps: each step's DRE is 80 FGMRES solves
+    # of 30 Arnoldi steps, on the card and again on the host.
+    mf_cfg = dataclasses.replace(
+        cavity,
+        time=dataclasses.replace(cavity.time, nts=MF_DRIVER_NTS,
+                                 t_end=MF_DRIVER_NTS * cavity.time.dt),
+        solver=dataclasses.replace(
+            cavity.solver, step_solver="matfree", dre_solver="auto",
+            fgmres_tol=MF_DRIVER_FGMRES, fgmres_cycles=12,
+        ),
+    )
+    t_c = time.perf_counter()
+    conv_kernel.launches = 0
+    spmm_kernel.launches = 0
+    got, met_mf, _ = run(mf_cfg, None, dev)
+    mf_launches = spmm_kernel.launches
+    per_stage = met_mf.launches
+    check(per_stage["dre_backward_sweep"][1] > 0
+          and per_stage["closed_loop_rollout"][1] > 0,
+          f"spmm_tile launched in the matfree DRE and rollout: {per_stage}")
+    ref, _, _ = run(mf_cfg, None, torch.device("cpu"))
+    devs = {
+        "gains": rel_err(got.gains.cpu(), ref.gains),
+        "ys": float(np.abs(got.ys - ref.ys).max() / np.abs(ref.ys).max()),
+        "us": float(np.abs(got.us - ref.us).max() / np.abs(ref.us).max()),
+        "cost": abs(got.cost - ref.cost) / abs(ref.cost),
+    }
+    check(max(devs.values()) <= MF_DRIVER_TOL,
+          f"cavity matfree tiers card vs CPU: {devs}")
+    log(f"[11c] cavity on step_solver='matfree', dre_solver='auto' (fgmres "
+        f"tol {MF_DRIVER_FGMRES:g}), card vs CPU: "
+        f"{ {k: f'{v:.2e}' for k, v in devs.items()} } (tol "
+        f"{MF_DRIVER_TOL:g}); spmm_tile launches by stage {per_stage}")
+    return launches, mf_launches, time.perf_counter() - t_c
+
+class RelresLog:
+    """A matrix-free DRE cache whose solves record the FGMRES relative
+    residual each reached (the sweep calls solve_smw only)."""
+
+    def __init__(self, cache):
+        self.cache, self.rels = cache, []
+
+    def solve_smw(self, i, u, v, rhs):
+        from optconpy_tpu_torch.ops.lowrank import smw_solve
+
+        def solve(r):
+            x, rel = self.cache.solve_relres(i, r)
+            self.rels.append(rel)
+            return x
+
+        return smw_solve(solve, u, v, rhs)
+
+
+def profile_listing(label: str, fn, top: int = 10) -> None:
+    """Print the device kernels of one call of fn (calls, device us,
+    share of the wall) and its host reads of device values."""
+    rows, wall, syncs = kernel_split(fn)
+    busy = sum(us for _, us in rows.values())
+    log(f"    profiler, {label}: wall {wall * 1e3:.2f} ms, device busy "
+        f"{busy / 1e3:.2f} ms = {busy / 1e3 / (wall * 1e3):.1%}, "
+        f"{sum(c for c, _ in rows.values())} kernels, {syncs} host reads; "
+        f"top kernels (calls, us, share of the wall):")
+    for name, (calls, us) in sorted(rows.items(),
+                                    key=lambda r: -r[1][1])[:top]:
+        log(f"      {calls:6d} x {us / calls:8.2f} us "
+            f"{us / 1e3 / (wall * 1e3):6.1%}  {name[:100]}")
+
+
+def matfree_bench_phase(np_ops, cond, sys64, cache64, sched, dev) -> dict:
+    """Phase 11 (a): the matrix-free tier at the bench shape in f64: the
+    ADI through SaddleMatfreeCache against the same iterations through
+    the host splu inverse stack, and the matrix-free stepper against the
+    'lu' stepper in both feedback modes. Returns K2's launches by path."""
+    import torch
+
+    from optconpy_tpu_torch.fem.device_conv import ConvKernel
+    from optconpy_tpu_torch.mpc import (
+        batched_nse_closed_loop,
+        build_nse_stepper,
+        build_nse_stepper_matfree,
+    )
+    from optconpy_tpu_torch.ops import spmm_kernel
+    from optconpy_tpu_torch.riccati import (
+        build_dre_cache_dae_matfree,
+        lowrank_adi,
+    )
+
+    f64 = torch.float64
+    sig, sseq, iseq = sched
+    n, m = sys64.b.shape
+    launches = {}
+    (mf, t_build) = sync_time(lambda: build_dre_cache_dae_matfree(
+        sys64, DT, sig, block=MF_BLOCK, max_cycles=MF_ADI_CYCLES,
+        tol=MF_ADI_TOL,
+    ))
+    watched = RelresLog(mf)
+    args = dict(
+        smw_u=torch.zeros((n, m), dtype=f64, device=dev), smw_v=sys64.b,
+        mass=sys64.mass, w=sys64.c.T,
+        sigma_seq=torch.as_tensor(sseq[:MF_ADI_ITERS]).to(dev, f64),
+        idx_seq=[int(i) for i in iseq[:MF_ADI_ITERS]],
+    )
+    spmm_kernel.launches = 0
+    z_mf, t_adi = sync_time(lambda: lowrank_adi(watched, **args))
+    launches["11a matfree ADI (bench, f64)"] = spmm_kernel.launches
+    z_inv = lowrank_adi(cache64, **args)
+    adi_dev = rel_err(z_mf, z_inv)
+    check(bool(torch.isfinite(z_mf).all()), "matfree ADI factor finite")
+    check(launches["11a matfree ADI (bench, f64)"] > 0,
+          "spmm_tile launched in the matrix-free ADI")
+    check(adi_dev <= MF_ADI_DEV,
+          f"matfree vs inverse-stack ADI: {adi_dev:.2e}")
+    log(f"[11a] bench shape f64: SaddleMatfreeCache ({len(sig)} shifts, block "
+        f"{MF_BLOCK}, tol {MF_ADI_TOL:g}, {MF_ADI_CYCLES} cycles) built in "
+        f"{t_build:.2f} s; {MF_ADI_ITERS} ADI iterations {t_adi:.2f} s "
+        f"({2 * MF_ADI_ITERS} FGMRES solves, worst relres "
+        f"{max(watched.rels):.2e}, {launches['11a matfree ADI (bench, f64)']} "
+        f"spmm_tile launches); Z vs the same iterations through the host "
+        f"splu inverse stack {adi_dev:.2e} (tol {MF_ADI_DEV:g})")
+    del mf, watched
+
+    t0 = time.perf_counter()
+    lu = build_nse_stepper(np_ops, cond, DT, device=dev, dtype=f64)
+    mfs = build_nse_stepper_matfree(
+        np_ops, cond, DT, device=dev, dtype=f64, block=MF_BLOCK,
+        max_cycles=MF_STEP_CYCLES, tol=MF_STEP_TOL,
+    )
+    conv64 = ConvKernel.build(np_ops["full"], cond, device=dev, dtype=f64)
+    t_steppers = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    vbar = lu.vbar.cpu().numpy()
+    v0 = torch.as_tensor(
+        vbar[None] + 1e-3 * rng.standard_normal((MF_STEP_S, n))
+    ).to(dev)
+    ks = torch.as_tensor(np.broadcast_to(
+        1e-3 * rng.standard_normal((m, n)), (MF_STEP_NTS + 1, m, n)
+    ).copy()).to(dev)
+    ws = torch.zeros((MF_STEP_NTS + 1, n), dtype=f64, device=dev)
+    for feedback in ("explicit", "implicit"):
+        def roll(cache):
+            return batched_nse_closed_loop(sys64, conv64, cache, ks, ws, v0,
+                                           ALPHA, DT, feedback=feedback)
+
+        spmm_kernel.launches = 0
+        got, t_mf = sync_time(lambda: roll(mfs))
+        key = f"11a matfree stepper {feedback} (bench, f64)"
+        launches[key] = spmm_kernel.launches
+        ref, t_lu = sync_time(lambda: roll(lu))
+        devs = {name: rel_err(a, b) for name, a, b in zip("vuy", got, ref)}
+        check(launches[key] > 0, f"spmm_tile launched in the {key}")
+        check(max(devs.values()) <= MF_STEP_DEV,
+              f"matfree vs lu stepper ({feedback}): {devs}")
+        log(f"      matfree stepper ({feedback} feedback, {MF_STEP_S} "
+            f"scenarios x {MF_STEP_NTS} steps, tol {MF_STEP_TOL:g}, "
+            f"{MF_STEP_CYCLES} cycles) {t_mf:.2f} s vs the lu stepper "
+            f"{t_lu:.2f} s: v, u, y deviation "
+            f"{ {k: f'{v:.2e}' for k, v in devs.items()} } (tol "
+            f"{MF_STEP_DEV:g}); {launches[key]} spmm_tile launches")
+    log(f"      steppers and f64 ConvKernel built in {t_steppers:.1f} s")
     return launches
+
+
+def matfree_config3_phase(c3_ops, c3_cond, c3_sys64, sched, ks64, dev):
+    """Phase 11 (b): config 3 in f32 on the matrix-free tier: the DRE
+    sweep against phase 9's f64 NS gains, the projected DRE residual,
+    K1 at the rollout's width, and the closed loop controlled and
+    uncontrolled. Returns (K1's, K2's) launches by path."""
+    import torch
+
+    from optconpy_tpu_torch.fem.device_conv import ConvKernel, FusedConvKernel
+    from optconpy_tpu_torch.mpc import (
+        batched_nse_closed_loop,
+        build_nse_stepper_matfree,
+    )
+    from optconpy_tpu_torch.ops import conv_kernel, spmm_kernel
+    from optconpy_tpu_torch.riccati import (
+        build_dre_cache_dae_matfree,
+        dre_backward_sweep,
+    )
+    from optconpy_tpu_torch.riccati.validate import dre_step_residual
+
+    f32 = torch.float32
+    sig, sseq, iseq = sched
+    sys32 = c3_sys64.to(dtype=f32)
+    n, m = sys32.b.shape
+    k1, k2 = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    mf, t_build = sync_time(lambda: build_dre_cache_dae_matfree(
+        sys32, C3_DT, sig, block=MF_BLOCK, max_cycles=C3_DRE_CYCLES,
+        tol=C3_FGMRES_TOL,
+    ))
+    watched = RelresLog(mf)
+    spmm_kernel.launches = 0
+    (zs, ks), t_sweep = sync_time(lambda: dre_backward_sweep(
+        sys32, watched, C3_ALPHA, C3_DT, C3_NTS, sseq, iseq, n_newton=1,
+        r_max=C3_R_MAX,
+    ))
+    k2["11b config-3 matfree DRE sweep (f32)"] = spmm_kernel.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    adi_iters = C3_NTS * C3_ADI
+    check(bool(torch.isfinite(ks).all()), "config-3 matfree gains finite")
+    check(spmm_kernel.launches > 0, "spmm_tile launched in the matfree DRE")
+    gain_dev = rel_err(ks.double(), ks64)
+    check(gain_dev <= MF_GAIN_TOL,
+          f"config-3 matfree f32 vs NS f64 gains: {gain_dev:.2e}")
+    feas = float(sys32.jmat.matmat(zs[0]).abs().max() / zs[0].abs().max())
+    t0 = time.perf_counter()
+    res0 = dre_step_residual(c3_ops, zs[0].cpu().numpy(), ks[0].cpu().numpy(),
+                             zs[1].cpu().numpy(), C3_ALPHA, C3_DT)
+    t_res = time.perf_counter() - t0
+    check(res0 <= DRE_RES_TOL, f"config-3 matfree DRE residual {res0:.2e}")
+    rels = np.asarray(watched.rels)
+    log(f"[11b] config 3 f32 matrix-free (n={n}, n_p={c3_sys64.n_p}, "
+        f"{len(sig)} shifts, block {MF_BLOCK}, FGMRES tol {C3_FGMRES_TOL:g}, "
+        f"{C3_DRE_CYCLES} cycles): build {t_build:.2f} s; DRE sweep "
+        f"({C3_NTS} steps x {C3_ADI} ADI, rank {C3_R_MAX}, one Newton step) "
+        f"{t_sweep:.2f} s = {adi_iters / t_sweep:.2f} ADI iters/s; "
+        f"{len(rels)} FGMRES solves, relres worst {rels.max():.2e}, median "
+        f"{np.median(rels):.2e}, {int((rels > C3_FGMRES_TOL).sum())} above "
+        f"tol; {spmm_kernel.launches} spmm_tile launches; "
+        f"peak device memory {peak_gb:.2f} GB")
+    log(f"      gains vs phase 9's f64 NS gains {gain_dev:.2e} (tol "
+        f"{MF_GAIN_TOL:g}); |JZ|/|Z| {feas:.2e}; projected DRE residual at "
+        f"step 0 {res0:.2e} (tol {DRE_RES_TOL:g}, host f64 {t_res:.1f} s)")
+
+    i_hard = int(np.argmax(np.abs(np.asarray(sig))))
+    w_adi = torch.randn((n, sys32.p_out + C3_R_MAX + m), dtype=f32, device=dev,
+                        generator=torch.Generator(dev).manual_seed(1))
+    profile_listing(
+        f"one ADI solve (SMW, shift {sig[i_hard]:.1f}, {w_adi.shape[1]} + "
+        f"{m} columns)",
+        lambda: mf.solve_smw(i_hard, ks[0].T.contiguous(), sys32.b, w_adi),
+    )
+    del mf, watched
+
+    conv = FusedConvKernel.build(c3_ops["full"], c3_cond, device=dev)
+    rng = np.random.default_rng(SEED)
+    vbar = torch.as_tensor(c3_cond.restrict(c3_ops["vbar_full"]))
+    v = (vbar[:, None] + 1e-3 * torch.as_tensor(
+        rng.standard_normal((n, C3_ROLL_S)))).to(dev, f32)
+    out = conv_kernel.conv_inner(v, conv)
+    ref = ConvKernel.conv_inner_batch_t(conv, v)
+    k1_err = rel_err(out, ref)
+    check(bool(torch.isfinite(out).all()), "config-3 conv_p2 finite")
+    check(k1_err <= KERNEL_TOL,
+          f"config-3 conv_p2 B={C3_ROLL_S}: {k1_err:.2e}")
+    k1_ms = event_ms(lambda: conv_kernel.conv_inner(v, conv), 20)
+    log(f"      conv_p2 at config 3 (nt={conv.tri_dofs.shape[0]}, "
+        f"B={C3_ROLL_S}): rel err {k1_err:.2e} vs the plain slot sums "
+        f"(tol {KERNEL_TOL:g}); {k1_ms * 1e3:.1f} us/call (events)")
+
+    stepper, t_step = sync_time(lambda: build_nse_stepper_matfree(
+        c3_ops, c3_cond, C3_DT, device=dev, dtype=f32, block=MF_BLOCK,
+        max_cycles=C3_ROLL_CYCLES, tol=C3_FGMRES_TOL,
+    ))
+    ks_roll = ks[0].expand(C3_ROLL_NTS + 1, m, n)
+    ws = torch.zeros((C3_ROLL_NTS + 1, n), dtype=f32, device=dev)
+    v0_np = vbar.numpy()[None] + 1e-3 * rng.standard_normal((C3_ROLL_S, n))
+    v0 = torch.as_tensor(v0_np, dtype=f32).to(dev)
+    mass64 = c3_sys64.mass
+    vbar_dev = stepper.vbar.double()
+
+    def energy_at_t(vs):
+        d = (vs[:, -1, :].double() - vbar_dev).T
+        return float((d * mass64.matmat(d.contiguous())).sum(0).mean())
+
+    runs = {}
+    for name, gains in (("controlled", ks_roll), ("uncontrolled",
+                                                  torch.zeros_like(ks_roll))):
+        conv_kernel.launches = 0
+        spmm_kernel.launches = 0
+        (vs, us, ys), t_roll = sync_time(lambda: batched_nse_closed_loop(
+            sys32, conv, stepper, gains, ws, v0, C3_ALPHA, C3_DT,
+            feedback="implicit",
+        ))
+        key = f"11b config-3 matfree rollout {name} (f32)"
+        k1[key], k2[key] = conv_kernel.launches, spmm_kernel.launches
+        check(k1[key] == C3_ROLL_NTS + 1,
+              f"conv_p2 launches in the {name} config-3 rollout: {k1[key]}")
+        check(k2[key] > 0, f"spmm_tile launched in the {name} rollout")
+        for nm, x in (("vs", vs), ("us", us), ("ys", ys)):
+            check(bool(torch.isfinite(x).all()), f"{name} rollout {nm} finite")
+        check(tuple(ys.shape) == (C3_ROLL_S, C3_ROLL_NTS + 1, sys32.p_out),
+              "config-3 rollout ys shape")
+        runs[name] = (energy_at_t(vs), t_roll)
+        log(f"      {name} closed loop ({C3_ROLL_S} scenarios x "
+            f"{C3_ROLL_NTS} steps, implicit feedback, tol {C3_FGMRES_TOL:g}, "
+            f"{C3_ROLL_CYCLES} cycles): {t_roll:.2f} s = "
+            f"{C3_ROLL_S * C3_ROLL_NTS / t_roll:.1f} solves/s; conv_p2 "
+            f"{k1[key]} launches, spmm_tile {k2[key]}; perturbation energy at "
+            f"T {runs[name][0]:.4e}")
+        del vs, us, ys
+    ratio = runs["controlled"][0] / runs["uncontrolled"][0]
+    check(ratio < ENERGY_RATIO_MAX, f"config-3 energy ratio {ratio:.3e}")
+    log(f"      stepper build {t_step:.2f} s; energy ratio controlled / "
+        f"uncontrolled at T {ratio:.4e} (bound < {ENERGY_RATIO_MAX:g})")
+    profile_listing(
+        f"one rollout step ({C3_ROLL_S} scenarios, implicit feedback)",
+        lambda: batched_nse_closed_loop(
+            sys32, conv, stepper, ks_roll[:2], ws[:2], v0, C3_ALPHA, C3_DT,
+            feedback="implicit",
+        ),
+    )
+    return k1, k2
 
 
 def main() -> None:
@@ -613,10 +970,14 @@ def main() -> None:
             "needs an NVIDIA GPU and does not fall back to the CPU"
         )
     from optconpy_tpu_torch import utils
-    from optconpy_tpu_torch.fem.device_conv import ConvKernel, FusedConvKernel
+    from optconpy_tpu_torch.fem.device_conv import (
+        ConvKernel,
+        FusedConvKernel,
+        QuadConvKernel,
+    )
     from optconpy_tpu_torch.models.cylinder import cylinder_setup
     from optconpy_tpu_torch.mpc import batched_nse_closed_loop, build_nse_fused
-    from optconpy_tpu_torch.ops import conv_kernel, cuda_build
+    from optconpy_tpu_torch.ops import conv_kernel, cuda_build, spmm_kernel
     from optconpy_tpu_torch.riccati import (
         dre_backward_sweep,
         dre_shift_schedule_dae,
@@ -624,6 +985,7 @@ def main() -> None:
     )
     from optconpy_tpu_torch.solvers.saddle import SaddleShiftedInverseCache
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     cpu = torch.device("cpu")
     f32, f64 = torch.float32, torch.float64
@@ -689,7 +1051,7 @@ def main() -> None:
         p_ms = event_ms(lambda: ConvKernel.conv_inner_batch_t(conv, v), 50)
         # device time of the wrapper's two kernels, without the host's
         # launch cost that back-to-back calls at small B are bound by
-        rows, _ = kernel_split(lambda: [
+        rows, _, _ = kernel_split(lambda: [
             conv_kernel.conv_inner(v, conv) for _ in range(20)
         ])
         d_ms = sum(us for name, (_, us) in rows.items()
@@ -700,6 +1062,7 @@ def main() -> None:
         if b == S_BATCH:
             kernel_ms, kernel_dev_ms, plain_ms = k_ms, d_ms, p_ms
             conv_bound = bnd
+            v_wide = v
         log(f"[3] conv_p2 B={b} (free dofs in and out): rel err {err:.2e} "
             f"(abs {abs_err:.2e}, tol {KERNEL_TOL:g}) vs the plain slot "
             f"sums; kernel {k_ms * 1e3:.1f} us/call back to back (events), "
@@ -708,6 +1071,26 @@ def main() -> None:
             f"({bnd[1]}) = {bnd[0] / k_ms:.0%} of the kernel's event time"
             + (f"; replaced kernel {EARLIER_CONV_US} us (events, without "
                f"its glue)" if b == S_BATCH else ""))
+
+    # --- 11 (d). QuadConvKernel beside K1 --------------------------------
+    t11 = time.perf_counter()
+    quad = QuadConvKernel.build(np_ops["full"], cond, device=dev, dtype=f32)
+    spmm_kernel.launches = 0
+    q_out = quad.conv_inner_batch_t(v_wide)
+    quad_launches = spmm_kernel.launches
+    check(quad_launches == 4, f"spmm_tile launches a QuadConvKernel call: "
+                              f"{quad_launches} != 4")
+    check(bool(torch.isfinite(q_out).all()), "QuadConvKernel output finite")
+    q_err = rel_err(q_out, ConvKernel.conv_inner_batch_t(conv, v_wide))
+    check(q_err <= KERNEL_TOL, f"QuadConvKernel vs plain: {q_err:.2e}")
+    q_ms = event_ms(lambda: quad.conv_inner_batch_t(v_wide), 20)
+    log(f"[11d] QuadConvKernel B={S_BATCH} f32 (spmm_tile: P, Gx, Gy "
+        f"{quad.p_pack.shape} at B={2 * S_BATCH}, PwT {quad.pwt_pack.shape}; "
+        f"{quad_launches} launches a call): rel err {q_err:.2e} vs ConvKernel's "
+        f"plain slot sums (tol {KERNEL_TOL:g}); {q_ms * 1e3:.1f} us/call "
+        f"(events) against conv_p2 {kernel_ms * 1e3:.1f} us/call")
+    del quad, q_out
+    t11 = time.perf_counter() - t11
 
     # --- 4. gains -------------------------------------------------------
     t0 = time.perf_counter()
@@ -783,7 +1166,7 @@ def main() -> None:
     warm = [sync_time(rollout)[1] for _ in range(3)]
     t_roll = statistics.median(warm)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    rows, wall = kernel_split(rollout)
+    rows, wall, _ = kernel_split(rollout)
     busy_us = sum(us for _, us in rows.values())
     log(f"    profiler, one warm rollout ({NTS} steps, {wall * 1e3:.2f} ms "
         f"wall, device busy {busy_us / 1e3:.2f} ms = "
@@ -833,7 +1216,7 @@ def main() -> None:
 
     # --- 7. SpMM kernel vs plain on the config-3 pencil -----------------
     t0 = time.perf_counter()
-    c3_ops, c3_sys64, _ = cylinder_setup(
+    c3_ops, c3_sys64, c3_cond = cylinder_setup(
         re=C3_RE, refinement=C3_REFINEMENT, device=dev, dtype=f64
     )
     t_setup3 = time.perf_counter() - t0
@@ -852,17 +1235,35 @@ def main() -> None:
 
     # --- 8. NS stack at the bench shape ---------------------------------
     bench_ns_phase(sys32, cache64, ks64, sig, sseq, iseq)
+
+    # --- 11 (a). the matrix-free tier at the bench shape ------------------
+    t0 = time.perf_counter()
+    k2_paths = matfree_bench_phase(np_ops, cond, sys64, cache64,
+                                   (sig, sseq, iseq), dev)
+    t11 += time.perf_counter() - t0
     del cache64, sys32, sys64
 
     # --- 9. config 3 ----------------------------------------------------
-    spmm_launches = config3_phase(c3_ops, c3_sys64, c3_sched)
+    spmm_launches, c3_ks64 = config3_phase(c3_ops, c3_sys64, c3_sched)
+
+    # --- 11 (b). config 3 on the matrix-free tier -----------------------
+    t0 = time.perf_counter()
+    k1_paths, k2_b = matfree_config3_phase(c3_ops, c3_cond, c3_sys64,
+                                           c3_sched, c3_ks64, dev)
+    k2_paths.update(k2_b)
+    t11 += time.perf_counter() - t0
 
     # --- 10. the driver ---------------------------------------------------
     rng = np.random.default_rng(SEED)
-    driver_launches = driver_phase(
-        vbar[None] + 1e-3 * rng.standard_normal((S_BATCH, n)), dev
+    driver_launches, k2_paths["11c cavity driver matfree (f64)"], t_c = (
+        driver_phase(vbar[None] + 1e-3 * rng.standard_normal((S_BATCH, n)),
+                     dev)
     )
+    k2_paths["11d QuadConvKernel call (bench, f32)"] = quad_launches
+    log(f"[11] phase 11 wall {t11 + t_c:.1f} s ((a), (b) and (d) "
+        f"{t11:.1f} s, (c) {t_c:.1f} s)")
 
+    log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         {
             "name": "conv_p2",
@@ -871,6 +1272,7 @@ def main() -> None:
             "replaces": "optconpy_tpu/ops/pallas_conv.py:74",
             "launches": main_launches,
             "driver_launches": driver_launches["conv_p2"],
+            "launches_by_path": k1_paths,
             "max_abs_err": kernel_err,
             "ms": kernel_ms,
             "device_ms": kernel_dev_ms,
@@ -887,6 +1289,7 @@ def main() -> None:
             "replaces": "optconpy_tpu/ops/pallas_spmm.py:197",
             "launches": spmm_launches,
             "driver_launches": driver_launches["spmm_tile"],
+            "launches_by_path": k2_paths,
             "max_abs_err": spmm_err,
             **spmm_head,
         },

@@ -9,7 +9,8 @@ explicit `device` argument wherever tensors are created. The kernels
 are hand-written CUDA for Hopper, built by ops/cuda_build.py: the
 batched P2 convection N(v)v (csrc/conv_p2.cu, bound in
 ops/conv_kernel.py) and the sparse-times-dense product of the
-Newton-Schulz inverse build (csrc/spmm_tile.cu, ops/spmm_kernel.py).
+Newton-Schulz inverse build, the matrix-free saddle solves and the
+quadrature convection (csrc/spmm_tile.cu, ops/spmm_kernel.py).
 
 Layer map (mirrors optconpy_tpu):
     optcont    the driver optcon_nse: config -> setup -> gains ->
@@ -19,11 +20,13 @@ Layer map (mirrors optconpy_tpu):
     fem/       host discretization (heat1d, Taylor-Hood); LTISystem,
                DAESystem and ConvKernel on tensors
     solvers/   steady state (host), shifted and saddle LU/inverse caches,
-               the Newton-Schulz inverse-stack build on the device
+               the Newton-Schulz inverse-stack build on the device,
+               Krylov solvers and the matrix-free saddle cache
     riccati/   shifts (host), low-rank ADI, Newton-Kleinman, DRE sweep,
                the DRE residual check (host)
     control/   costate caches and the feedforward sweep
-    mpc/       closed-loop rollouts: LTI, IMEX step tiers, fused
+    mpc/       closed-loop rollouts: LTI, IMEX step tiers (dense and
+               matrix-free), fused
     models/    driven-cavity and cylinder-wake setups
     utils/     config and its hash, checkpoint cache, metrics, VTK,
                runtime precision policy

@@ -10,6 +10,8 @@ ConvKernel is the plain torch path in any dtype. FusedConvKernel routes
 every free-dof evaluation through the wrapper of the CUDA kernel
 (ops/conv_kernel.py), over its patch plan: float32 on CUDA, ConvKernel's
 plain slot sums on the CPU. On CUDA it refuses full-dof evaluations.
+QuadConvKernel computes the same quadrature as four products of sparse
+interpolation matrices through the SpMM kernel (ops/spmm_kernel.py).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ..ops import conv_kernel
+from ..ops.spmm_kernel import pack_spmm, sort_rows_by_window, spmm
 
 
 def _host_arrays(ops: dict, cond) -> dict:
@@ -188,3 +191,122 @@ class FusedConvKernel(ConvKernel):
 
     def conv_inner_batch_t(self, v_t: torch.Tensor) -> torch.Tensor:
         return conv_kernel.conv_inner(v_t, self)
+
+
+@dataclass(frozen=True)
+class QuadConvKernel:
+    """Quadrature-interpolation convection: N(v)v as four SpMMs.
+
+    The interpolation matrices are built on the host with the degree-5
+    rule of the assembly:
+        P, Gx, Gy: (NQ, ns) values and x-/y-derivatives of the P2 basis
+            at every quadrature point of every element (6 nnz a row);
+        PwT = P^T diag(2 A_e w_q): (ns, NQ) the weighted scatter;
+        out_a = PwT @ [(P vx) (Gx v_a) + (P vy) (Gy v_a)].
+    Both velocity components ride one product each as column blocks, so
+    it matches ConvKernel to roundoff. Quadrature rows are sorted by
+    their first column (ops/spmm_kernel.sort_rows_by_window), which
+    narrows the column union of each row group. Same conv_full /
+    conv_inner / conv_*_batch contract as ConvKernel, plus the batch-last
+    conv_inner_batch_t; every evaluation launches the SpMM kernel four
+    times on CUDA (its plain version on the CPU).
+    """
+
+    p_pack: object  # SpmmPack (NQ, ns)
+    gx_pack: object
+    gy_pack: object
+    pwt_pack: object  # SpmmPack (ns, NQ)
+    free: torch.Tensor
+    dir_values: torch.Tensor
+    ns: int
+    n_free: int
+
+    @classmethod
+    def build(cls, ops: dict, cond, *, device, dtype=torch.float64):
+        import scipy.sparse as sp
+
+        from .taylor_hood import _QL, _QW, _p2_dlam, _p2_values
+
+        space = ops["space"]
+        ns = space.n_scalar
+        nt = space.mesh.nt
+        nq = _QL.shape[0]
+        phi = _p2_values(_QL)  # (nq, 6)
+        # gq[e, q, i, d] = dphi[q, i, l] glam[e, l, d]
+        gq = np.einsum("qil,eld->eqid", _p2_dlam(_QL), space.grad_lam)
+        rows = np.repeat(np.arange(nt * nq), 6)
+        cols = np.broadcast_to(space.tri_dofs[:, None, :], (nt, nq, 6))
+        cols = cols.reshape(-1)
+
+        def interp(vals):
+            m = sp.coo_matrix((vals.reshape(-1), (rows, cols)),
+                              shape=(nt * nq, ns))
+            m.sum_duplicates()
+            return m.tocsr()
+
+        p_sp = interp(np.broadcast_to(phi[None], (nt, nq, 6)))
+        gx_sp = interp(gq[..., 0])
+        gy_sp = interp(gq[..., 1])
+        wq = (2.0 * space.area[:, None] * (0.5 * _QW)[None]).reshape(-1)
+        qperm = sort_rows_by_window(p_sp)
+        p_sp, gx_sp, gy_sp = (a[qperm].tocsr() for a in (p_sp, gx_sp, gy_sp))
+        pwt_sp = (sp.diags(wq[qperm]) @ p_sp).T.tocsr()
+        dir_values = np.zeros(2 * ns)
+        dir_values[cond.dirichlet] = cond.g
+
+        def pack(a):
+            return pack_spmm(a, device=device, dtype=dtype)
+
+        return cls(
+            p_pack=pack(p_sp), gx_pack=pack(gx_sp), gy_pack=pack(gy_sp),
+            pwt_pack=pack(pwt_sp),
+            free=torch.as_tensor(np.asarray(cond.free, np.int64)).to(device),
+            dir_values=torch.as_tensor(dir_values).to(device=device,
+                                                     dtype=dtype),
+            ns=ns, n_free=len(cond.free),
+        )
+
+    def expand(self, v_inner: torch.Tensor) -> torch.Tensor:
+        """Lift inner (free-dof) velocity to the full dof vector."""
+        out = self.dir_values.clone()
+        out[self.free] = v_inner
+        return out
+
+    def conv_full_batch(self, v_full_t: torch.Tensor) -> torch.Tensor:
+        """Batch-last N(v)v: (2ns, B) -> (2ns, B) weak-form vectors."""
+        ns = self.ns
+        b = v_full_t.shape[1]
+        u = torch.cat([v_full_t[:ns], v_full_t[ns:]], dim=1)  # (ns, 2B)
+        pq = spmm(self.p_pack, u)  # values at the quadrature points
+        gxq = spmm(self.gx_pack, u)
+        gyq = spmm(self.gy_pack, u)
+        vxq, vyq = pq[:, :b], pq[:, b:]
+        rx = vxq * gxq[:, :b] + vyq * gyq[:, :b]
+        ry = vxq * gxq[:, b:] + vyq * gyq[:, b:]
+        out = spmm(self.pwt_pack, torch.cat([rx, ry], dim=1))
+        return torch.cat([out[:, :b], out[:, b:]], dim=0)
+
+    def conv_full(self, v_full: torch.Tensor) -> torch.Tensor:
+        return self.conv_full_batch(v_full[:, None])[:, 0]
+
+    def conv_inner(self, v_inner: torch.Tensor) -> torch.Tensor:
+        return self.conv_full(self.expand(v_inner))[self.free]
+
+    def conv_inner_batch(self, v_batch: torch.Tensor) -> torch.Tensor:
+        """Batched N(v)v on free dofs: (B, n_free) -> (B, n_free)."""
+        return self.conv_inner_batch_t(v_batch.T).T
+
+    def conv_inner_batch_t(self, v_t: torch.Tensor) -> torch.Tensor:
+        """Batch-last N(v)v on free dofs: (n_free, B) -> (n_free, B)."""
+        v_full_t = self.dir_values[:, None].repeat(1, v_t.shape[1])
+        v_full_t[self.free] = v_t
+        return self.conv_full_batch(v_full_t)[self.free]
+
+    def to(self, device=None, dtype=None) -> "QuadConvKernel":
+        return QuadConvKernel(
+            self.p_pack.to(device, dtype), self.gx_pack.to(device, dtype),
+            self.gy_pack.to(device, dtype), self.pwt_pack.to(device, dtype),
+            self.free.to(device),
+            self.dir_values.to(device=device, dtype=dtype),
+            self.ns, self.n_free,
+        )

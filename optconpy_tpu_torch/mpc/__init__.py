@@ -1,11 +1,13 @@
 """mpc/ — closed-loop rollouts: linear (LTI) and nonlinear NSE."""
 from .nse_rollout import (
     NSEFusedCache,
+    NSEMatfreeStepCache,
     NSEStepCache,
     batched_nse_closed_loop,
     batched_nse_closed_loop_fused,
     build_nse_fused,
     build_nse_stepper,
+    build_nse_stepper_matfree,
     nse_closed_loop_rollout,
 )
 from .rollout import (
@@ -17,12 +19,14 @@ from .rollout import (
 
 __all__ = [
     "NSEFusedCache",
+    "NSEMatfreeStepCache",
     "NSEStepCache",
     "batched_closed_loop",
     "batched_nse_closed_loop",
     "batched_nse_closed_loop_fused",
     "build_nse_fused",
     "build_nse_stepper",
+    "build_nse_stepper_matfree",
     "build_step_cache",
     "build_step_cache_dae",
     "closed_loop_rollout",

@@ -1,9 +1,13 @@
 """Nonlinear NSE closed-loop rollouts — IMEX stepping with feedback.
 
-Counterpart of optconpy_tpu/mpc/nse_rollout.py for the dense tiers. One
-saddle solve of the implicit block per step (NSEStepCache: a SaddleLU
-or SaddleInverse), explicit convection, feedback gains as tall-skinny
-products. Three IMEX schemes, chosen at build time:
+Counterpart of optconpy_tpu/mpc/nse_rollout.py. One saddle solve of the
+implicit block per step, explicit convection, feedback gains as
+tall-skinny products. The implicit block is solved by a dense host
+factor applied on the device (NSEStepCache: a SaddleLU or
+SaddleInverse) or, with no O((n + n_p)^2) object, by warm-started
+FGMRES (NSEMatfreeStepCache: solvers/matfree.py, with the implicit
+convection and the CNAB2 half operator as SpMM packs). Three IMEX
+schemes, chosen at build time:
   * explicit: implicit block [[M/dt - A_stokes, J^T], [J, 0]], the whole
     convection N(v)v explicit (CFL-limited);
   * oseen (default): the steady-state-linearized convection L1(vbar)
@@ -31,6 +35,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..ops.spmm_kernel import pack_spmm, spmm
 
 
 @dataclass(frozen=True)
@@ -111,6 +117,84 @@ def build_nse_stepper(
         fp=dev(cond.jmat_bc_rhs(full["J"])),
         vbar=dev(cond.restrict(np_ops["vbar_full"])),
         rhs_half=dev(0.5 * lin) if scheme == "oseen-cn" else None,
+    )
+
+
+@dataclass(frozen=True)
+class NSEMatfreeStepCache:
+    """Matrix-free IMEX step operators for one (problem, dt) pair.
+
+    saddle: SaddleMatfreeCache of [[M/dt - theta (A_stokes - L1), J^T],
+        [J, 0]] with the one mass coefficient 1/dt (theta 1 Euler, 1/2
+        CNAB2);
+    l1_pack: the implicit convection L1(vbar) as an SpMM pack, None for
+        the explicit scheme (never densified: n^2 values at config 3 are
+        ~1 GB);
+    rhs_half: None (Euler) or (A_stokes - L1)/2 as an SpMM pack, applied
+        on the rhs each CNAB2 step;
+    dt: the step baked into the saddle, checked at apply.
+    """
+
+    saddle: object
+    l1_pack: object
+    fv: torch.Tensor
+    fp: torch.Tensor
+    vbar: torch.Tensor
+    rhs_half: object
+    dt: float
+
+
+def build_nse_stepper_matfree(
+    np_ops: dict,
+    cond,
+    dt: float,
+    *,
+    device,
+    dtype=torch.float32,
+    scheme: str = "oseen",
+    block: int = 512,
+    m_krylov: int = 30,
+    max_cycles: int = 8,
+    tol: float = 1e-6,
+) -> NSEMatfreeStepCache:
+    """Host builder of the matrix-free IMEX step cache (scipy sparse
+    only, nothing densified); schemes as build_nse_stepper, FGMRES
+    settings as SaddleMatfreeCache."""
+    import scipy.sparse as sp
+
+    from ..solvers.matfree import SaddleMatfreeCache
+
+    if scheme not in ("oseen", "explicit", "oseen-cn"):
+        raise ValueError(f"unknown IMEX scheme: {scheme}")
+    full = np_ops["full"]
+    m_i = sp.csr_matrix(np_ops["M"])
+    a_stokes_i = sp.csr_matrix(cond.mat_inner(full["A"]))
+    l1_i = _l1_inner(np_ops, cond, scheme)
+    lin = a_stokes_i if l1_i is None else (a_stokes_i - l1_i).tocsr()
+    # F = M/dt - theta (A_stokes - L1): the mass coefficient is +1/dt,
+    # which flips the Schur sign against the ADI pencils (signed
+    # schur_coeffs in SaddleMatfreeCache).
+    theta = 0.5 if scheme == "oseen-cn" else 1.0
+    saddle = SaddleMatfreeCache.build(
+        (-theta * lin).tocsr(), m_i, np_ops["J"], [1.0 / dt],
+        device=device, dtype=dtype, block=block, m_krylov=m_krylov,
+        max_cycles=max_cycles, tol=tol,
+    )
+
+    def pack(a):
+        return pack_spmm(a, device=device, dtype=dtype)
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dtype)
+
+    return NSEMatfreeStepCache(
+        saddle=saddle,
+        l1_pack=None if l1_i is None else pack(l1_i),
+        fv=dev(cond.mat_bc_rhs(full["A"])),
+        fp=dev(cond.jmat_bc_rhs(full["J"])),
+        vbar=dev(cond.restrict(np_ops["vbar_full"])),
+        rhs_half=pack((0.5 * lin).tocsr()) if scheme == "oseen-cn" else None,
+        dt=float(dt),
     )
 
 
@@ -255,32 +339,53 @@ def batched_nse_closed_loop_fused(
     return vs.permute(2, 0, 1), us.permute(2, 0, 1), ys.permute(2, 0, 1)
 
 
-def _nse_loop_columns(sys, conv, cache: NSEStepCache, ks, ws, v0, alpha,
-                     dt, feedback):
-    """The IMEX closed loop on batch-last states v0 (n, S); returns
-    time-major (vs (nts+1, n, S), us (nts, m, S), ys (nts+1, p, S))."""
+def _nse_loop_columns(sys, conv, cache, ks, ws, v0, alpha, dt, feedback):
+    """The IMEX closed loop of an NSEStepCache or an NSEMatfreeStepCache
+    on batch-last states v0 (n, S); returns time-major (vs (nts+1, n, S),
+    us (nts, m, S), ys (nts+1, p, S)).
+
+    The matrix-free cache applies L1 and the CNAB2 half operator through
+    the SpMM kernel and warm-starts each step's FGMRES solve from the
+    previous step's solution (v, p): in implicit feedback the solution
+    before the feedback correction, as the reference carries it."""
     if feedback not in ("explicit", "implicit"):
         raise ValueError(f"unknown feedback mode: {feedback}")
     b, bt = sys.b, sys.b.T
     vbar = cache.vbar[:, None]
     fv = cache.fv[:, None]
+    n_p = cache.fp.shape[0]
     fp = cache.fp[:, None].expand(-1, v0.shape[1])
     cn = cache.rhs_half is not None
+    if isinstance(cache, NSEMatfreeStepCache):
+        apply_op = spmm
+        solver, l1 = cache.saddle, cache.l1_pack
+        warm = (v0, v0.new_zeros((n_p, v0.shape[1])))
+
+        def solve(rhs_v, warm):
+            return solver.apply_full(rhs_v, fp, x0=warm)
+    else:
+        def apply_op(op, v):
+            return op @ v
+
+        solver, l1, warm = cache.lu, cache.l1_imp, None
+
+        def solve(rhs_v, warm):
+            return solver.apply_full(rhs_v, fp)
 
     def q_of(v):
-        return conv.conv_inner_batch_t(v) - cache.l1_imp @ v
+        nv = conv.conv_inner_batch_t(v)
+        return nv if l1 is None else nv - apply_op(l1, v)
 
     def rhs_base(v, q, q_prev):
         r = sys.mass.matmat(v) / dt - fv
         if cn:
-            r = r + cache.rhs_half @ v - (1.5 * q - 0.5 * q_prev)
+            r = r + apply_op(cache.rhs_half, v) - (1.5 * q - 0.5 * q_prev)
         else:
             r = r - q
         return r
 
     if feedback == "implicit":
-        n_p = cache.fp.shape[0]
-        gmat = cache.lu.apply(b, b.new_zeros((n_p, sys.m_in)))  # constant
+        gmat = solver.apply(b, b.new_zeros((n_p, sys.m_in)))  # constant
         eye_m = torch.eye(sys.m_in, dtype=b.dtype, device=b.device)
     v = v0
     q_prev = q_of(v0)  # AB2 seed: q_{-1} := q_0 (first step = CNAB1)
@@ -290,13 +395,15 @@ def _nse_loop_columns(sys, conv, cache: NSEStepCache, ks, ws, v0, alpha,
         q = q_of(v)
         if feedback == "implicit":
             rhs_v = rhs_base(v, q, q_prev) + b @ (uff + k_gain @ vbar)
-            x0 = cache.lu.apply(rhs_v, fp)
+            warm = solve(rhs_v, warm)
+            x0 = warm[0]
             corr = torch.linalg.solve(eye_m + k_gain @ gmat, k_gain @ x0)
             v_next = x0 - gmat @ corr
             u = -(k_gain @ (v_next - vbar)) + uff
         else:
             u = -(k_gain @ (v - vbar)) + uff
-            v_next = cache.lu.apply(rhs_base(v, q, q_prev) + b @ u, fp)
+            warm = solve(rhs_base(v, q, q_prev) + b @ u, warm)
+            v_next = warm[0]
         v, q_prev = v_next, q
         vs.append(v)
         us.append(u)
@@ -354,24 +461,28 @@ def batched_nse_closed_loop(
     scenario-major (vs (S, nts+1, n), us (S, nts, m), ys (S, nts+1, p)).
 
     An NSEFusedCache dispatches to batched_nse_closed_loop_fused; it
-    bakes dt into pmat/c0 at build time, so the passed dt must match it.
-    An NSEStepCache runs the IMEX loop of nse_closed_loop_rollout.
+    and an NSEMatfreeStepCache bake dt in at build time, so the passed dt
+    must match it. An NSEStepCache or an NSEMatfreeStepCache runs the
+    IMEX loop of nse_closed_loop_rollout.
     """
-    if isinstance(cache, NSEFusedCache):
+    if isinstance(cache, (NSEFusedCache, NSEMatfreeStepCache)):
         if abs(cache.dt - dt) > 1e-12 * max(abs(dt), 1e-30):
             raise ValueError(
-                f"dt={dt} disagrees with NSEFusedCache build dt={cache.dt}; "
-                f"rebuild the cache for this dt"
+                f"dt={dt} disagrees with {type(cache).__name__} build "
+                f"dt={cache.dt}; rebuild the cache for this dt"
             )
+    if isinstance(cache, NSEFusedCache):
         return batched_nse_closed_loop_fused(
             sys, conv, cache, ks, ws, v0_batch, alpha, feedback
         )
-    if not isinstance(cache, NSEStepCache):
+    if not isinstance(cache, (NSEStepCache, NSEMatfreeStepCache)):
         raise TypeError(
-            f"batched_nse_closed_loop takes an NSEFusedCache or an "
-            f"NSEStepCache, got {type(cache).__name__}"
+            f"batched_nse_closed_loop takes an NSEFusedCache, an "
+            f"NSEStepCache or an NSEMatfreeStepCache, got "
+            f"{type(cache).__name__}"
         )
     vs, us, ys = _nse_loop_columns(
-        sys, conv, cache, ks, ws, v0_batch.T, alpha, dt, feedback
+        sys, conv, cache, ks, ws, v0_batch.T.contiguous(), alpha, dt,
+        feedback,
     )
     return vs.permute(2, 0, 1), us.permute(2, 0, 1), ys.permute(2, 0, 1)

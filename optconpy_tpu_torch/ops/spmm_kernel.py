@@ -117,6 +117,18 @@ class SpmmPack:
     def n_tiles(self) -> int:
         return (self.eptr.shape[0] - 1) // TILE_GROUPS
 
+    def to(self, device=None, dtype=None) -> "SpmmPack":
+        """Move to `device` and cast the values to `dtype` (indices keep
+        int32; the shared memory a tile needs follows the value size)."""
+        evals = self.evals.to(device=device, dtype=dtype)
+        per_entry = GROUP * self.evals.element_size() + 4
+        entries = self.smem_bytes // per_entry  # of the largest tile
+        return SpmmPack(
+            eptr=self.eptr.to(device), ecol=self.ecol.to(device),
+            evals=evals, shape=self.shape, nnz=self.nnz,
+            smem_bytes=entries * (GROUP * evals.element_size() + 4),
+        )
+
 
 def pack_spmm(a, *, device, dtype=None) -> SpmmPack:
     """Host pack of a scipy sparse matrix (rows in its own order) on

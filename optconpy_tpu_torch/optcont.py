@@ -28,11 +28,6 @@ from .utils.metrics import MetricsLogger
 # reach at every shift (the reference driver's default).
 NS_CERTIFY_TOL = 5e-4
 
-MATFREE_TODO = (
-    "the matrix-free tier is not in optconpy_tpu_torch yet (ROADMAP item "
-    "13); pick 'lu', 'inverse' or 'fused'"
-)
-
 
 @dataclass
 class OptConResult:
@@ -105,18 +100,18 @@ def _setup_problem(cfg: OptConConfig, device):
 
 
 def _check_tiers(solver_cfg) -> str:
-    """Refuse what this package cannot run before any work starts;
-    returns the DRE tier with 'auto' resolved."""
-    if solver_cfg.step_solver not in ("lu", "inverse", "fused"):
-        if solver_cfg.step_solver == "matfree":
-            raise NotImplementedError(f"step_solver='matfree': {MATFREE_TODO}")
+    """Refuse unknown tiers before any work starts; returns the DRE tier
+    with 'auto' resolved: the matrix-free step tier pairs with the
+    matrix-free DRE tier (no O((n + n_p)^2) object), every other step
+    tier with the dense 'inverse' one."""
+    if solver_cfg.step_solver not in ("lu", "inverse", "fused", "matfree"):
         raise ValueError(f"unknown step_solver: {solver_cfg.step_solver}")
     dre_solver = solver_cfg.dre_solver
     if dre_solver == "auto":
-        dre_solver = "inverse"  # step_solver is not 'matfree' here
-    if dre_solver == "matfree":
-        raise NotImplementedError(f"dre_solver='matfree': {MATFREE_TODO}")
-    if dre_solver not in ("lu", "inverse", "inverse_ns"):
+        dre_solver = (
+            "matfree" if solver_cfg.step_solver == "matfree" else "inverse"
+        )
+    if dre_solver not in ("lu", "inverse", "inverse_ns", "matfree"):
         raise ValueError(f"unknown dre_solver: {dre_solver}")
     return dre_solver
 
@@ -162,11 +157,13 @@ def optcon_nse(
     runs every scenario as a column of one solve per step.
     controlled=False skips the backward sweeps and rolls out the plain
     plant (u = 0), the comparison baseline for every controlled run.
-    Tiers: step_solver 'lu' | 'inverse' | 'fused'; dre_solver 'lu' |
-    'inverse' | 'inverse_ns' | 'auto' (= 'inverse'). The 'matfree' tiers
-    raise NotImplementedError. `metrics` receives the seconds of the
-    stages setup, dre_backward_sweep, feedforward_sweep, step_build and
-    closed_loop_rollout, each ending in a device synchronize.
+    Tiers: step_solver 'lu' | 'inverse' | 'fused' | 'matfree'; dre_solver
+    'lu' | 'inverse' | 'inverse_ns' | 'matfree' | 'auto' ('matfree' with
+    the matfree step tier, else 'inverse'); the matfree tiers solve to
+    fgmres_tol within fgmres_cycles restarts. `metrics` receives the
+    seconds of the stages setup, dre_backward_sweep, feedforward_sweep,
+    step_build and closed_loop_rollout, each ending in a device
+    synchronize.
     """
     from . import utils
     from .control import (
@@ -209,6 +206,7 @@ def optcon_nse(
         from .riccati import (
             build_dre_cache,
             build_dre_cache_dae,
+            build_dre_cache_dae_matfree,
             dre_shift_schedule,
             dre_shift_schedule_dae,
         )
@@ -218,7 +216,12 @@ def optcon_nse(
                 np_ops["A"], np_ops["M"], np_ops["J"], dt,
                 num_shifts=cfg.solver.num_shifts, n_adi=cfg.solver.n_adi,
             )
-            if dre_solver == "inverse_ns":
+            if dre_solver == "matfree":
+                cache = build_dre_cache_dae_matfree(
+                    sys, dt, sig, tol=cfg.solver.fgmres_tol,
+                    max_cycles=cfg.solver.fgmres_cycles,
+                )
+            elif dre_solver == "inverse_ns":
                 cache = _ns_cache(sys, dt, sig)
             else:
                 # The 'inverse' stack is stored under the config hash in
@@ -282,14 +285,15 @@ def optcon_nse(
             batched_nse_closed_loop,
             build_nse_fused,
             build_nse_stepper,
+            build_nse_stepper_matfree,
         )
 
         step_solver = cfg.solver.step_solver
-        # The convection kernel serves the fused tier in float32; the
-        # plain tensor path covers float64 and the other tiers.
+        # The convection kernel serves the fused and matfree tiers in
+        # float32; the plain tensor path covers float64 and the others.
         conv_cls = (
             FusedConvKernel
-            if step_solver == "fused" and dtype == torch.float32
+            if step_solver in ("fused", "matfree") and dtype == torch.float32
             else ConvKernel
         )
         with met.timed("step_build", tier=step_solver):
@@ -299,6 +303,12 @@ def optcon_nse(
                 stepper = build_nse_fused(
                     np_ops, cond, dt, device=device, dtype=dtype,
                     scheme=cfg.solver.imex_scheme,
+                )
+            elif step_solver == "matfree":
+                stepper = build_nse_stepper_matfree(
+                    np_ops, cond, dt, device=device, dtype=dtype,
+                    scheme=cfg.solver.imex_scheme, tol=cfg.solver.fgmres_tol,
+                    max_cycles=cfg.solver.fgmres_cycles,
                 )
             else:
                 stepper = build_nse_stepper(

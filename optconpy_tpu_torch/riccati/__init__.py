@@ -2,6 +2,8 @@
 from .dre import (
     build_dre_cache,
     build_dre_cache_dae,
+    build_dre_cache_dae_krylov,
+    build_dre_cache_dae_matfree,
     build_dre_cache_dae_ns,
     dre_backward_sweep,
     dre_shift_schedule,
@@ -15,6 +17,8 @@ from .shifts import cycled_shifts, spectral_interval
 __all__ = [
     "build_dre_cache",
     "build_dre_cache_dae",
+    "build_dre_cache_dae_krylov",
+    "build_dre_cache_dae_matfree",
     "build_dre_cache_dae_ns",
     "cycled_shifts",
     "dre_backward_sweep",

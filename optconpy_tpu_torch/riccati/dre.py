@@ -8,9 +8,10 @@ with the CONSTANT time-shifted matrix  Atil = A - M/(2 dt)  and constant
 term  C^T C + M^T X_{k+1} M / dt. Because Atil is time-independent, one
 shifted-saddle inverse stack serves the whole sweep; each step runs a
 warm-started Newton-ADI with the previous step's gain. Counterpart of
-optconpy_tpu/riccati/dre.py for the dense tiers: host LU or explicit
-inverse per shift ('lu', 'inverse'), unconstrained (LTI) or saddle, and
-the saddle inverse stack built on the device by Newton-Schulz.
+optconpy_tpu/riccati/dre.py: host LU or explicit inverse per shift
+('lu', 'inverse'), unconstrained (LTI) or saddle; the saddle inverse
+stack built on the device by Newton-Schulz; and the memory-lean saddle
+tiers, reference LUs + GMRES ('krylov') and matrix-free FGMRES.
 """
 from __future__ import annotations
 
@@ -205,6 +206,47 @@ def build_dre_cache_dae_ns(
     return SaddleShiftedInverseCache(inv_stack, sys.n), info
 
 
+def build_dre_cache_dae_krylov(sys, dt: float, sig, n_iter: int = 30,
+                               n_ref: int = 2):
+    """Memory-lean shifted saddle cache of [[Atil^T + sigma M, J^T],
+    [J, 0]]: n_ref reference saddle LUs (host f64) and GMRES
+    (solvers/krylov.py) instead of one LU per shift, on sys's device in
+    sys's dtype."""
+    from ..solvers.krylov import SaddleShiftedKrylovCache
+
+    m_d, a_d, j_d = sys.dense()
+    at_til = a_d.T - m_d / (2.0 * dt)
+    return SaddleShiftedKrylovCache.build(
+        at_til, sys.mass, j_d, sig, n_iter=n_iter, n_ref=n_ref
+    )
+
+
+def build_dre_cache_dae_matfree(
+    sys, dt: float, sig, block: int = 512, m_krylov: int = 30,
+    max_cycles: int = 8, tol: float = 1e-6,
+):
+    """Matrix-free shifted saddle cache (solvers/matfree.py): block-Jacobi
+    and pressure-Schur FGMRES over the SpMM kernel, no O((n + n_p)^2)
+    object, on sys's device in sys's dtype.
+
+    The implicit-Euler time shift -1/(2 dt) is folded into Atil^T and
+    passed as schur_offset, so the pressure preconditioner sees the total
+    signed mass coefficient sigma - 1/(2 dt).
+    """
+    from ..ops.sparse import ell_to_scipy
+    from ..solvers.matfree import SaddleMatfreeCache
+
+    m_sp = ell_to_scipy(sys.mass)
+    a_sp = ell_to_scipy(sys.stiff)
+    j_sp = ell_to_scipy(sys.jmat)
+    c = 1.0 / (2.0 * dt)
+    return SaddleMatfreeCache.build(
+        (a_sp.T - c * m_sp).tocsr(), m_sp, j_sp, sig, schur_offset=-c,
+        device=sys.b.device, dtype=sys.b.dtype, block=block,
+        m_krylov=m_krylov, max_cycles=max_cycles, tol=tol,
+    )
+
+
 def dre_backward_sweep(
     sys,
     cache,
@@ -223,7 +265,8 @@ def dre_backward_sweep(
     ks: (nts + 1, m, n) feedback gains K_k = (1/alpha) B^T X_k M.
 
     cache: any shifted cache with solve_smw(i, u, v, rhs) (the LTI or
-    saddle LU and inverse caches). sigma_seq / idx_seq: the cycled ADI
+    saddle LU, inverse, Krylov and matrix-free caches). sigma_seq /
+    idx_seq: the cycled ADI
     schedule (numpy or tensors).
     Warm start: each step's Newton begins from the previous (later-time)
     step's gain; the terminal step's from zero.

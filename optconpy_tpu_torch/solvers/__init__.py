@@ -1,2 +1,3 @@
-"""solvers/ — steady state (host), shifted and saddle LU/inverse caches
-and the Newton-Schulz inverse-stack build."""
+"""solvers/ — steady state (host), shifted and saddle LU/inverse caches,
+the Newton-Schulz inverse-stack build, Krylov solvers with the
+reference-LU caches, and the matrix-free saddle cache."""

@@ -73,32 +73,47 @@ class SaddleOpsPack:
 
     @staticmethod
     def build(at_sp, m_sp, j_sp, *, device, dtype):
-        """Host-side packing (scipy); returns (pack, perm), perm the
-        velocity ordering (pack rows = original rows[perm])."""
-        import scipy.sparse as sp
+        """Host-side packing (scipy); returns (pack, perm, p_perm): perm
+        the velocity ordering (pack rows = original rows[perm]), p_perm
+        the pressure ordering (J's pack rows = original rows[p_perm])."""
+        at_r, m_r, j_r, perm, p_perm = ordered_operators(at_sp, m_sp, j_sp)
+        return SaddleOpsPack.pack(at_r, m_r, j_r, device=device,
+                                  dtype=dtype), perm, p_perm
 
-        at = sp.csr_matrix(at_sp)
-        m = sp.csr_matrix(m_sp)
-        j = sp.csr_matrix(j_sp)
-        perm = rcm_permutation(m, at)
-        at_r = at[perm][:, perm].tocsr()
-        m_r = m[perm][:, perm].tocsr()
-        j_c = j[:, perm].tocsr()
-        j_r = j_c[sort_rows_by_window(j_c)].tocsr()
-
+    @staticmethod
+    def pack(at_r, m_r, j_r, *, device, dtype) -> "SaddleOpsPack":
+        """Device packs of operators already in the pack's ordering."""
         def pack(a):
             return pack_spmm(a, device=device, dtype=dtype)
 
-        ops = SaddleOpsPack(
+        return SaddleOpsPack(
             at=pack(at_r),
             m=pack(m_r),
             j=pack(j_r),
             jt=pack(j_r.T.tocsr()),
             m_diag=torch.as_tensor(m_r.diagonal()).to(device, dtype),
-            n=at.shape[0],
-            n_p=j.shape[0],
+            n=at_r.shape[0],
+            n_p=j_r.shape[0],
         )
-        return ops, perm
+
+
+def ordered_operators(at_sp, m_sp, j_sp):
+    """The pencil's operators in an RCM velocity ordering with pressure
+    rows sorted by their first velocity column (host scipy). Returns
+    (at_r, m_r, j_r, perm, p_perm): at_r = at[perm][:, perm],
+    j_r = j[p_perm][:, perm]."""
+    import scipy.sparse as sp
+
+    at = sp.csr_matrix(at_sp)
+    m = sp.csr_matrix(m_sp)
+    j = sp.csr_matrix(j_sp)
+    perm = rcm_permutation(m, at)
+    j_c = j[:, perm].tocsr()
+    p_perm = sort_rows_by_window(j_c)
+    return (
+        at[perm][:, perm].tocsr(), m[perm][:, perm].tocsr(),
+        j_c[p_perm].tocsr(), perm, p_perm,
+    )
 
 
 def _apply_big(pack: SaddleOpsPack, s: float, x):
@@ -219,14 +234,12 @@ def build_inverse_stack_ns(
     """
     log = verbose or (lambda *_: None)
     t_all = time.perf_counter()
-    pack, perm = SaddleOpsPack.build(
-        at_sp, m_sp, j_sp, device=device, dtype=dtype
-    )
+    at_r, m_r, j_r, perm, _ = ordered_operators(at_sp, m_sp, j_sp)
+    pack = SaddleOpsPack.pack(at_r, m_r, j_r, device=device, dtype=dtype)
     pack64 = None
     if dtype != torch.float64:
-        pack64, _ = SaddleOpsPack.build(
-            at_sp, m_sp, j_sp, device=device, dtype=torch.float64
-        )
+        pack64 = SaddleOpsPack.pack(at_r, m_r, j_r, device=device,
+                                    dtype=torch.float64)
     n, n_p = pack.n, pack.n_p
     gen = torch.Generator(device=device).manual_seed(SEED)
     ns_passes = 0

@@ -20,6 +20,11 @@ same factors applied on the CPU to 1e-12 in f64, and the driven-cavity
 driver (tests/test_optcont_driver.py's CFG) on the card must match its
 CPU run to 1e-10. Its fused f32 run launches the convection kernel once
 a step; its Newton-Schulz gain tier launches the SpMM kernel.
+
+The matrix-free tier: FGMRES and SaddleMatfreeCache (f32 and f64, the
+cylinder's DRE pencil) and the reference-LU Krylov caches on the card
+against the CPU, QuadConvKernel against ConvKernel's plain version, and
+the cavity driver on the matfree tiers, card against CPU (1e-8).
 """
 import dataclasses
 from dataclasses import replace
@@ -29,7 +34,11 @@ import pytest
 import torch
 
 from optconpy_tpu_torch import interop
-from optconpy_tpu_torch.fem.device_conv import ConvKernel, FusedConvKernel
+from optconpy_tpu_torch.fem.device_conv import (
+    ConvKernel,
+    FusedConvKernel,
+    QuadConvKernel,
+)
 from optconpy_tpu_torch.models.cylinder import cylinder_setup
 from optconpy_tpu_torch.ops import conv_kernel, spmm_kernel
 from optconpy_tpu_torch.fem.dae import dae_from_scipy
@@ -45,11 +54,14 @@ from optconpy_tpu_torch.utils import (
     TimeConfig,
 )
 from optconpy_tpu_torch.riccati import (
+    build_dre_cache_dae_krylov,
     build_dre_cache_dae_ns,
     dre_backward_sweep,
     dre_shift_schedule_dae,
     load_or_build_inverse_stack,
 )
+from optconpy_tpu_torch.solvers.krylov import ShiftedKrylovCache, fgmres
+from optconpy_tpu_torch.solvers.matfree import SaddleMatfreeCache
 from optconpy_tpu_torch.solvers.ns_inverse import (
     SaddleOpsPack,
     build_inverse_stack_ns,
@@ -400,4 +412,139 @@ def test_fused_f32_driver_launches_kernels(gpu, tmp_path, dre_solver):
     res = optcon_nse(cfg, v0_batch=None, cache_dir=str(tmp_path), device=gpu)
     assert conv_kernel.launches - conv0 == cfg.time.nts
     assert (spmm_kernel.launches - spmm0 > 0) == (dre_solver == "inverse_ns")
+    assert np.isfinite(res.ys).all() and np.isfinite(res.us).all()
+
+
+# --- the matrix-free tier and the quadrature convection on the card --------
+
+def _nonsymmetric(n, seed):
+    rng = np.random.default_rng(seed)
+    return np.eye(n) + 0.5 * rng.standard_normal((n, n)) / np.sqrt(n), rng
+
+
+@pytest.mark.parametrize("dtype, tol, dev_tol", [
+    (torch.float32, 1e-5, 1e-4), (torch.float64, 1e-12, 1e-10),
+])
+def test_fgmres_on_card_matches_cpu(gpu, dtype, tol, dev_tol):
+    a, rng = _nonsymmetric(300, 7)
+    b = rng.standard_normal((300, 5))
+    b[:, 3] = 0.0
+    out = []
+    for d in (gpu, CPU):
+        at = torch.as_tensor(a, dtype=dtype, device=d)
+        x, rel = fgmres(lambda v: at @ v, torch.as_tensor(b, dtype=dtype,
+                                                        device=d),
+                        m=10, tol=tol, max_cycles=30)
+        assert rel <= tol and torch.isfinite(x).all()
+        out.append(x.cpu())
+    assert _rel(out[0], out[1]) <= dev_tol
+    assert out[0][:, 3].abs().max() == 0
+    bad = torch.as_tensor(a, dtype=dtype, device=gpu)
+    bad[2, 2] = float("nan")
+    with pytest.raises(RuntimeError, match="not finite"):
+        fgmres(lambda v: bad @ v, torch.ones((300, 2), dtype=dtype,
+                                             device=gpu), m=10, tol=tol)
+
+
+@pytest.mark.parametrize("dtype, tol, dev_tol", [
+    (torch.float32, 1e-5, 1e-3), (torch.float64, 1e-11, 1e-8),
+])
+def test_matfree_cache_on_card_matches_cpu(cylinder, dtype, tol, dev_tol):
+    """SaddleMatfreeCache of the cylinder's DRE pencil on 2 shifts: each
+    solve through the SpMM kernel (5 launches an Arnoldi step) reaches
+    the FGMRES tolerance and agrees with the same cache on the CPU."""
+    dev, np_ops, _ = cylinder
+    sig, _, _ = dre_shift_schedule_dae(
+        np_ops["A"], np_ops["M"], np_ops["J"], DT, num_shifts=2, n_adi=2
+    )
+    c = 1.0 / (2.0 * DT)
+    caches = [
+        SaddleMatfreeCache.build(
+            _at_til(np_ops), np_ops["M"], np_ops["J"], sig, device=d,
+            dtype=dtype, schur_offset=-c, max_cycles=12, tol=tol,
+        )
+        for d in (dev, CPU)
+    ]
+    rhs = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (np_ops["M"].shape[0], 4)), dtype=dtype)
+    for i in range(2):
+        before = spmm_kernel.launches
+        x, rel = caches[0].solve_relres(i, rhs.to(dev))
+        assert spmm_kernel.launches - before >= 5 * 30
+        y, rel_cpu = caches[1].solve_relres(i, rhs)
+        assert rel <= tol and rel_cpu <= tol
+        assert _rel(x.cpu(), y) <= dev_tol, i
+        jx = np_ops["J"] @ x.double().cpu().numpy()
+        assert np.abs(jx).max() <= 10 * tol * x.abs().max().item()
+
+
+def test_krylov_caches_on_card_match_cpu(gpu):
+    """The reference-LU Krylov caches (host f64 LUs, lu_solve and GMRES on
+    the card) against the same caches on the CPU, f64, cavity nx=6."""
+    ops, sys_, _ = cavity_stokes_setup(nx=6, device=CPU)
+    sig, _, _ = dre_shift_schedule_dae(ops["A"], ops["M"], ops["J"], 0.02,
+                                       num_shifts=4, n_adi=4)
+    rhs = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        (sys_.n, 3)))
+    s_card = sys_.to(gpu)
+    saddle = [build_dre_cache_dae_krylov(s, 0.02, sig) for s in (s_card, sys_)]
+    plain = [ShiftedKrylovCache.build(s.stiff.todense().T, s.mass, sig)
+             for s in (s_card, sys_)]
+    for i in range(4):
+        for card_cache, host_cache in (saddle, plain):
+            got = card_cache.solve(i, rhs.to(gpu))
+            assert got.is_cuda
+            assert _rel(got.cpu(), host_cache.solve(i, rhs)) <= 1e-10, i
+
+
+def test_quad_conv_on_card_matches_plain(cylinder, card):
+    """QuadConvKernel in f32 at B=1024: four SpMM launches a call, and
+    ConvKernel's plain slot sums agree to 1e-5."""
+    _, np_ops, cond = cylinder
+    dev, fused, vbar_full = card
+    quad = QuadConvKernel.build(np_ops["full"], cond, device=dev,
+                                dtype=torch.float32)
+    rng = np.random.default_rng(8)
+    v = torch.as_tensor(
+        vbar_full[fused.free.cpu().numpy(), None]
+        + 1e-3 * rng.standard_normal((fused.n_free, 1024)),
+        dtype=torch.float32,
+    ).to(dev)
+    before = spmm_kernel.launches
+    got = quad.conv_inner_batch_t(v)
+    assert spmm_kernel.launches - before == 4
+    plain = ConvKernel.conv_inner_batch_t(fused, v)
+    assert _rel(got, plain) <= 1e-5
+    assert _rel(quad.conv_inner(v[:, 0].contiguous()), plain[:, 0]) <= 1e-5
+
+
+@pytest.mark.parametrize("tiers", [
+    {"step_solver": "matfree"}, {"dre_solver": "matfree"},
+])
+def test_cavity_driver_matfree_on_card_matches_cpu(gpu, tmp_path, tiers):
+    """4 of CFG's 20 steps: each matrix-free DRE step is 80 FGMRES solves
+    of 30 Arnoldi steps, on the card and on the host."""
+    cfg = dataclasses.replace(
+        CAVITY_CFG, time=TimeConfig(t0=0.0, t_end=0.08, nts=4),
+        solver=dataclasses.replace(CAVITY_CFG.solver, fgmres_tol=1e-11,
+                                   fgmres_cycles=12, **tiers),
+    )
+    spmm0 = spmm_kernel.launches
+    got = optcon_nse(cfg, cache_dir=str(tmp_path / "card"), device=gpu)
+    assert spmm_kernel.launches > spmm0
+    ref = optcon_nse(cfg, cache_dir=str(tmp_path / "cpu"), device=CPU)
+    assert _rel(got.gains.cpu(), ref.gains) <= 1e-8
+    for a, b in ((got.ys, ref.ys), (got.us, ref.us)):
+        assert _rel_np(a, b) <= 1e-8
+
+
+def test_matfree_f32_driver_launches_kernels(gpu, tmp_path):
+    """The f32 matrix-free step tier runs the convection kernel: once per
+    step and once for the CNAB2/AB2 seed of the rollout."""
+    cfg = dataclasses.replace(CAVITY_CFG, solver=dataclasses.replace(
+        CAVITY_CFG.solver, dtype="float32", step_solver="matfree",
+        dre_solver="inverse", fgmres_tol=1e-5))
+    conv0 = conv_kernel.launches
+    res = optcon_nse(cfg, cache_dir=str(tmp_path), device=gpu)
+    assert conv_kernel.launches - conv0 == cfg.time.nts + 1
     assert np.isfinite(res.ys).all() and np.isfinite(res.us).all()

@@ -8,8 +8,10 @@ path), both f64: gains, ys, us and cost agree to 1e-8 relative. The
 cavity on the 'fused' step tier in f32 agrees to 1e-4. The rest pins the
 driver's own behaviour: the config hash, y* families, the uncontrolled
 baseline, checkpoint resume under the port's salt, VTK export, artifacts
-never shared between the packages, and the refusals (matfree tiers,
-TF32 precision, no card, an uncertified Newton-Schulz stack).
+never shared between the packages, and the refusals (TF32 precision, no
+card, an uncertified Newton-Schulz stack). The matrix-free step and DRE
+tiers agree with the reference driver on the cavity CFG, cut to 2 steps,
+to 1e-7 (f64, FGMRES tolerance 1e-11).
 """
 import dataclasses
 import json
@@ -231,16 +233,55 @@ def test_packages_never_load_each_others_gains(runs, tmp_path):
 
 # --- refusals ---------------------------------------------------------------
 
+def _matfree_cfg(u, tiers):
+    """CFG on a matrix-free tier at the reference tests' FGMRES settings
+    (1e-11, 12 cycles), over 2 of its 20 steps: each matrix-free DRE step
+    is 80 FGMRES solves of 30 Arnoldi steps in each package."""
+    cfg = _solver(_configs(u)["cavity"], fgmres_tol=1e-11, fgmres_cycles=12,
+                  **tiers)
+    return dataclasses.replace(cfg, time=u.TimeConfig(t0=0.0, t_end=0.04,
+                                                      nts=2))
+
+
+@pytest.fixture(scope="module")
+def matfree_runs(tmp_path_factory):
+    """Both packages' optcon_nse on one matrix-free tier choice, run once
+    per distinct config (step_solver='matfree' alone leaves dre_solver
+    at its default, 'auto')."""
+    done = {}
+
+    def run(tiers):
+        t_cfg, j_cfg = _matfree_cfg(tu, tiers), _matfree_cfg(ju, tiers)
+        if t_cfg.hash() not in done:
+            t_dir = tmp_path_factory.mktemp("port_matfree")
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(j_native, "available", lambda: False)
+                ref = j_optcon(j_cfg, cache_dir=str(
+                    tmp_path_factory.mktemp("ref_matfree")))
+            got = optcon_nse(t_cfg, cache_dir=str(t_dir), device=CPU)
+            done[t_cfg.hash()] = ref, got, t_dir
+        return done[t_cfg.hash()]
+
+    return run
+
+
 @pytest.mark.parametrize("tiers", [
     {"step_solver": "matfree"},
     {"dre_solver": "matfree"},
     {"step_solver": "matfree", "dre_solver": "auto"},
 ])
-def test_matfree_tiers_raise(tmp_path, tiers):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        optcon_nse(_solver(T_CFGS["cavity"], **tiers),
-                   cache_dir=str(tmp_path), device=CPU)
-    assert not list(tmp_path.iterdir())  # refused before any work
+def test_matfree_tiers_match_reference(matfree_runs, tiers):
+    """The matrix-free step and DRE tiers, and 'auto' resolving to the
+    matrix-free DRE tier beside the matrix-free step tier, agree with the
+    reference driver on the cavity at a tight FGMRES tolerance."""
+    ref, got, t_dir = matfree_runs(tiers)
+    assert got.ys.shape == ref.ys.shape == (1, 3, 2)
+    assert _rel(got.gains, ref.gains) <= 1e-7
+    assert _rel(got.ys, ref.ys) <= 1e-7
+    assert _rel(got.us, ref.us) <= 1e-7
+    assert abs(got.cost - ref.cost) <= 1e-7 * abs(ref.cost)
+    # every DRE tier here is matrix-free: no splu inverse stack was built
+    assert not list(t_dir.glob("dreinv_*"))
 
 
 @pytest.mark.parametrize("field", ["matmul_precision",

@@ -185,8 +185,15 @@ def test_port_never_imports_jax():
         " 'riccati.validate', 'models.cavity', 'optcont', 'control',"
         " 'control.lqr', 'mpc.rollout', 'utils', 'utils.cache',"
         " 'utils.config', 'utils.metrics', 'utils.vtk', 'ops.dense',"
-        " 'solvers.shifted', 'fem.heat1d', 'fem.operators'):\n"
+        " 'solvers.shifted', 'fem.heat1d', 'fem.operators', 'solvers.krylov',"
+        " 'solvers.matfree', 'fem.device_conv'):\n"
         "    assert 'optconpy_tpu_torch.' + m in sys.modules, m\n"
+        "from optconpy_tpu_torch.solvers.krylov import fgmres\n"
+        "from optconpy_tpu_torch.solvers.matfree import SaddleMatfreeCache\n"
+        "from optconpy_tpu_torch.fem.device_conv import QuadConvKernel\n"
+        "from optconpy_tpu_torch.mpc import build_nse_stepper_matfree\n"
+        "from optconpy_tpu_torch.riccati import ("
+        "build_dre_cache_dae_krylov, build_dre_cache_dae_matfree)\n"
         "assert 'jax' not in sys.modules\n"
         "assert not any(k.startswith('optconpy_tpu.') or k == 'optconpy_tpu'"
         " for k in sys.modules)\n"
