@@ -64,7 +64,21 @@ the card. Phases:
      step and DRE tiers over 4 of its 20 steps, card vs CPU (<= 1e-8);
      (d) after phase 3,
      QuadConvKernel at B=1024 in f32 (4 SpMM launches a call) vs
-     ConvKernel's plain version (<= 1e-5), timed beside K1.
+     ConvKernel's plain version (<= 1e-5), timed beside K1;
+ 12. receding-horizon MPC (mpc/receding.py), after phase 11 (a): (a)
+     config 4's macro loop (8 shifts, 16 ADI then 8 warm, horizon 8,
+     apply 8, 1024 scenarios, f32, K1 in the rollout) on the dense_ns
+     tier (NS-refreshed dense DRE stack, every refresh certified in f64
+     at 5e-4) and the matfree tier (refreshed FGMRES caches), 6 macros
+     after a 2-macro warm-up (whose every SpMM input, a (pack, width,
+     dtype) at a time, is held against the plain version, <= 1e-5 f32
+     and 1e-12 f64, and repeats bit for bit): s/macro, the breakdown by
+     stage, the device idle estimate, the perturbation decay (< 1), K1 and K2 launches by
+     macro and stage, peak memory, each macro's refresh residuals or
+     FGMRES records; dense_ns vs matfree gains on every macro (<= 1e-4);
+     dense_ns in f64 for the first 2 macros on the same scenarios: gains
+     and outputs C v (<= 1e-4). (b) the lu tier on the reference test's
+     cavity, card vs CPU (vs, us, ks <= 1e-10).
 
 Every failed check raises, so the exit code is non-zero. The last three
 lines are the kernels JSON (each kernel's launches on every path it
@@ -146,6 +160,21 @@ ENERGY_RATIO_MAX = 0.5
 MF_DRIVER_TOL = 1e-8  # cavity matfree tiers, card vs CPU, f64
 MF_DRIVER_FGMRES = 1e-11
 MF_DRIVER_NTS = 4  # of config 2's 20 steps
+
+# Phase 12: receding-horizon MPC, config 4, the card side of
+# scripts/bench_receding.py at the shape of RECEDING_r05.json: 8 shifts,
+# 16 ADI iterations (8 on warm macros), horizon 8, apply 8, one Newton
+# step, rank 32, 1024 scenarios, 6 macros after a 2-macro warm-up call.
+RH_SHIFTS, RH_ADI = 8, 16
+RH_CFG = dict(horizon=8, apply=8, dt=DT, alpha=ALPHA, n_newton=1, r_max=32,
+              warm_n_adi=8)
+RH_MACROS, RH_WARMUP, RH_F64_MACROS = 6, 2, 2
+RH_GAIN_TOL = 1e-4  # dense_ns vs matfree gains, every macro
+RH_NS_CERTIFY = 5e-4  # every NS refresh, evaluated in f64
+# (b) the lu tier: the cavity of tests/test_receding_mpc.py:21-28 and its
+# 3-macro config (:55), 4 scenarios, f64, card vs CPU.
+RH_LU_CFG = dict(horizon=8, apply=4, dt=0.02, alpha=1e-8, r_max=24)
+RH_LU_TOL = 1e-10
 
 # Times of the kernels this port replaced, on an NVIDIA H100 80GB HBM3 at
 # 700 W (PERF.md), printed beside this run's: the first convection kernel
@@ -690,24 +719,6 @@ def driver_phase(v0_np, dev):
         f"{MF_DRIVER_TOL:g}); spmm_tile launches by stage {per_stage}")
     return launches, mf_launches, time.perf_counter() - t_c
 
-class RelresLog:
-    """A matrix-free DRE cache whose solves record the FGMRES relative
-    residual each reached (the sweep calls solve_smw only)."""
-
-    def __init__(self, cache):
-        self.cache, self.rels = cache, []
-
-    def solve_smw(self, i, u, v, rhs):
-        from optconpy_tpu_torch.ops.lowrank import smw_solve
-
-        def solve(r):
-            x, rel = self.cache.solve_relres(i, r)
-            self.rels.append(rel)
-            return x
-
-        return smw_solve(solve, u, v, rhs)
-
-
 def profile_listing(label: str, fn, top: int = 10) -> None:
     """Print the device kernels of one call of fn (calls, device us,
     share of the wall) and its host reads of device values."""
@@ -750,7 +761,6 @@ def matfree_bench_phase(np_ops, cond, sys64, cache64, sched, dev) -> dict:
         sys64, DT, sig, block=MF_BLOCK, max_cycles=MF_ADI_CYCLES,
         tol=MF_ADI_TOL,
     ))
-    watched = RelresLog(mf)
     args = dict(
         smw_u=torch.zeros((n, m), dtype=f64, device=dev), smw_v=sys64.b,
         mass=sys64.mass, w=sys64.c.T,
@@ -758,7 +768,7 @@ def matfree_bench_phase(np_ops, cond, sys64, cache64, sched, dev) -> dict:
         idx_seq=[int(i) for i in iseq[:MF_ADI_ITERS]],
     )
     spmm_kernel.launches = 0
-    z_mf, t_adi = sync_time(lambda: lowrank_adi(watched, **args))
+    z_mf, t_adi = sync_time(lambda: lowrank_adi(mf, **args))
     launches["11a matfree ADI (bench, f64)"] = spmm_kernel.launches
     z_inv = lowrank_adi(cache64, **args)
     adi_dev = rel_err(z_mf, z_inv)
@@ -770,11 +780,12 @@ def matfree_bench_phase(np_ops, cond, sys64, cache64, sched, dev) -> dict:
     log(f"[11a] bench shape f64: SaddleMatfreeCache ({len(sig)} shifts, block "
         f"{MF_BLOCK}, tol {MF_ADI_TOL:g}, {MF_ADI_CYCLES} cycles) built in "
         f"{t_build:.2f} s; {MF_ADI_ITERS} ADI iterations {t_adi:.2f} s "
-        f"({2 * MF_ADI_ITERS} FGMRES solves, worst relres "
-        f"{max(watched.rels):.2e}, {launches['11a matfree ADI (bench, f64)']} "
+        f"({mf.stats.solves} FGMRES solves, worst relres "
+        f"{mf.stats.worst_relres:.2e}, {mf.stats.above_tol} above tol, "
+        f"{launches['11a matfree ADI (bench, f64)']} "
         f"spmm_tile launches); Z vs the same iterations through the host "
         f"splu inverse stack {adi_dev:.2e} (tol {MF_ADI_DEV:g})")
-    del mf, watched
+    del mf
 
     t0 = time.perf_counter()
     lu = build_nse_stepper(np_ops, cond, DT, device=dev, dtype=f64)
@@ -846,10 +857,9 @@ def matfree_config3_phase(c3_ops, c3_cond, c3_sys64, sched, ks64, dev):
         sys32, C3_DT, sig, block=MF_BLOCK, max_cycles=C3_DRE_CYCLES,
         tol=C3_FGMRES_TOL,
     ))
-    watched = RelresLog(mf)
     spmm_kernel.launches = 0
     (zs, ks), t_sweep = sync_time(lambda: dre_backward_sweep(
-        sys32, watched, C3_ALPHA, C3_DT, C3_NTS, sseq, iseq, n_newton=1,
+        sys32, mf, C3_ALPHA, C3_DT, C3_NTS, sseq, iseq, n_newton=1,
         r_max=C3_R_MAX,
     ))
     k2["11b config-3 matfree DRE sweep (f32)"] = spmm_kernel.launches
@@ -866,7 +876,7 @@ def matfree_config3_phase(c3_ops, c3_cond, c3_sys64, sched, ks64, dev):
                              zs[1].cpu().numpy(), C3_ALPHA, C3_DT)
     t_res = time.perf_counter() - t0
     check(res0 <= DRE_RES_TOL, f"config-3 matfree DRE residual {res0:.2e}")
-    rels = np.asarray(watched.rels)
+    rels = np.asarray(mf.stats.relres)
     log(f"[11b] config 3 f32 matrix-free (n={n}, n_p={c3_sys64.n_p}, "
         f"{len(sig)} shifts, block {MF_BLOCK}, FGMRES tol {C3_FGMRES_TOL:g}, "
         f"{C3_DRE_CYCLES} cycles): build {t_build:.2f} s; DRE sweep "
@@ -874,7 +884,8 @@ def matfree_config3_phase(c3_ops, c3_cond, c3_sys64, sched, ks64, dev):
         f"{t_sweep:.2f} s = {adi_iters / t_sweep:.2f} ADI iters/s; "
         f"{len(rels)} FGMRES solves, relres worst {rels.max():.2e}, median "
         f"{np.median(rels):.2e}, {int((rels > C3_FGMRES_TOL).sum())} above "
-        f"tol; {spmm_kernel.launches} spmm_tile launches; "
+        f"tol (the cache's record: {mf.stats.above_tol}); "
+        f"{spmm_kernel.launches} spmm_tile launches; "
         f"peak device memory {peak_gb:.2f} GB")
     log(f"      gains vs phase 9's f64 NS gains {gain_dev:.2e} (tol "
         f"{MF_GAIN_TOL:g}); |JZ|/|Z| {feas:.2e}; projected DRE residual at "
@@ -888,7 +899,7 @@ def matfree_config3_phase(c3_ops, c3_cond, c3_sys64, sched, ks64, dev):
         f"{m} columns)",
         lambda: mf.solve_smw(i_hard, ks[0].T.contiguous(), sys32.b, w_adi),
     )
-    del mf, watched
+    del mf
 
     conv = FusedConvKernel.build(c3_ops["full"], c3_cond, device=dev)
     rng = np.random.default_rng(SEED)
@@ -959,6 +970,248 @@ def matfree_config3_phase(c3_ops, c3_cond, c3_sys64, sched, ks64, dev):
         ),
     )
     return k1, k2
+
+@contextmanager
+def recorded_spmm_inputs():
+    """Inside the block, every name in the port's modules bound to the
+    SpMM wrapper records, for each (pack, width, dtype) it is handed,
+    the pack and a copy of the first X, then calls the wrapper. Yields
+    {key: (pack, x)}: the path's own inputs, to hold the kernel against
+    its plain version afterwards."""
+    from optconpy_tpu_torch.ops import spmm_kernel
+
+    wrapper, seen = spmm_kernel.spmm, {}
+
+    def recording(a, x):
+        key = (id(a), tuple(x.shape[1:]), x.dtype)
+        if key not in seen:
+            seen[key] = (a, x.clone())
+        return wrapper(a, x)
+
+    mods = [m for name, m in list(sys.modules.items())
+            if name.startswith("optconpy_tpu_torch")
+            and getattr(m, "spmm", None) is wrapper]
+    for m in mods:
+        m.spmm = recording
+    try:
+        yield seen
+    finally:
+        for m in mods:
+            m.spmm = wrapper
+
+
+def check_spmm_inputs(label: str, seen: dict) -> float:
+    """The SpMM kernel vs its plain version on each recorded (pack, X) and
+    on a seeded random X of the same shape: SPMM_TOL relative, and a
+    repeat bit for bit. Returns the largest absolute error."""
+    import torch
+
+    from optconpy_tpu_torch.ops import spmm_kernel
+
+    gen = torch.Generator(next(iter(seen.values()))[1].device)
+    gen.manual_seed(SEED)
+    worst, max_abs, cases = {}, 0.0, {}
+    for (_, width, dtype), (a, x_path) in seen.items():
+        dname = str(dtype).removeprefix("torch.")
+        case = f"{a.shape[0]}x{a.shape[1]} B={width[0] if width else 1}"
+        x_rand = torch.randn(x_path.shape, generator=gen, dtype=dtype,
+                             device=x_path.device)
+        for which, x in (("path", x_path), ("random", x_rand)):
+            y = spmm_kernel.spmm(a, x)
+            ref = spmm_kernel.spmm_plain(a, x)
+            abs_err = float((y - ref).abs().max()) if y.numel() else 0.0
+            scale = float(ref.abs().max()) if ref.numel() else 0.0
+            err = abs_err / scale if scale > 0 else abs_err
+            check(bool(torch.isfinite(y).all()),
+                  f"{label} spmm {case} {dname} {which} X finite")
+            check(err <= SPMM_TOL[dname],
+                  f"{label} spmm {case} (nnz {a.nnz}) {dname} {which} X: "
+                  f"{err:.2e}")
+            check(torch.equal(y, spmm_kernel.spmm(a, x)),
+                  f"{label} spmm {case} {dname} {which} X repeats bit for "
+                  "bit")
+            if err >= worst.get(dname, (0.0,))[0]:
+                worst[dname] = (err, f"{case}, {which} X")
+            max_abs = max(max_abs, abs_err)
+        cases.setdefault(dname, set()).add(case)
+    log(f"     {label}: spmm_tile vs plain on the path's {len(seen)} "
+        f"(pack, width, dtype) inputs and a random X of each shape; worst "
+        f"rel err { {k: f'{e:.2e} ({at})' for k, (e, at) in worst.items()} }"
+        f" (tol {SPMM_TOL}), each repeats bit for bit; operators and widths "
+        f"{ {k: sorted(v) for k, v in cases.items()} }")
+    return max_abs
+
+
+def receding_phase(np_ops, cond, sys64, dev):
+    """Phase 12 (a): config 4's receding-horizon macro loop in f32 on the
+    dense_ns and matfree tiers, then dense_ns in f64 for the first macros
+    on the same scenarios. The SpMM kernel is held against its plain
+    version on the inputs the warm-up call hands it. Returns each
+    kernel's launches by path and the kernel's largest absolute error."""
+    import torch
+
+    from optconpy_tpu_torch.fem.device_conv import ConvKernel, FusedConvKernel
+    from optconpy_tpu_torch.mpc import RHConfig, receding_horizon_mpc
+    from optconpy_tpu_torch.ops import conv_kernel, spmm_kernel
+    from optconpy_tpu_torch.riccati import dre_shift_schedule_dae
+
+    f32, f64 = torch.float32, torch.float64
+    sys32 = sys64.to(dtype=f32)
+    n = sys32.n
+    t0 = time.perf_counter()
+    sched = dre_shift_schedule_dae(np_ops["A"], np_ops["M"], np_ops["J"], DT,
+                                   num_shifts=RH_SHIFTS, n_adi=RH_ADI)
+    conv = FusedConvKernel.build(np_ops["full"], cond, device=dev)
+    rng = np.random.default_rng(SEED)
+    vbar_np = cond.restrict(np_ops["vbar_full"])
+    v0_np = vbar_np[None] + 1e-3 * rng.standard_normal((S_BATCH, n))
+    v0 = torch.as_tensor(v0_np, dtype=f32).to(dev)
+    vbar = torch.as_tensor(vbar_np).to(dev)
+    log(f"[12] receding-horizon MPC, config 4 (n={n}, {S_BATCH} scenarios, "
+        f"{RH_SHIFTS} shifts x {RH_ADI} ADI, {RH_CFG}): shifts and K1 "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def decay(vs):
+        d = (vs[:, [0, -1]].double() - vbar).norm(dim=2).mean(dim=0)
+        return float(d[1] / d[0])
+
+    outs, k1, k2, k2_abs = {}, {}, {}, 0.0
+    for solver in ("dense_ns", "matfree"):
+        cfg = RHConfig(**RH_CFG, solver=solver)
+        args = (sys32, conv, np_ops, cond, cfg, *sched, v0)
+        # the warm-up's macros build (0) and refresh (1) every cache
+        with recorded_spmm_inputs() as seen:
+            _, t_warm = sync_time(
+                lambda: receding_horizon_mpc(*args, n_macro=RH_WARMUP))
+        k2_abs = max(k2_abs, check_spmm_inputs(f"{solver} warm-up", seen))
+        del seen
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        conv_kernel.launches = 0
+        spmm_kernel.launches = 0
+        out, t_all = sync_time(lambda: receding_horizon_mpc(
+            *args, n_macro=RH_MACROS, profile=True))
+        key = f"12 receding {solver} (config 4, f32, {RH_MACROS} macros)"
+        k1[key], k2[key] = conv_kernel.launches, spmm_kernel.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for name in ("vs", "us", "ks"):
+            check(bool(torch.isfinite(out[name]).all()),
+                  f"receding {solver} {name} finite")
+        check(tuple(out["vs"].shape)
+              == (S_BATCH, RH_MACROS * RH_CFG["apply"] + 1, n),
+              f"receding {solver} vs shape")
+        check(k1[key] == RH_MACROS * (RH_CFG["apply"] + 1),
+              f"conv_p2 launches in the {solver} loop: {k1[key]}")
+        check(k2[key] > 0, f"spmm_tile launched in the {solver} loop")
+        tm = out["timings"]
+        stages = ("rebuild", "dre", "probe", "stepper_join", "rollout")
+        mean = {k: statistics.mean(t[f"{k}_s"] for t in tm)
+                for k in stages + ("total",)}
+        steady = tm[2:]
+        steady_s = statistics.mean(t["total_s"] for t in steady)
+        busy = statistics.mean(t["dre_s"] + t["probe_s"] + t["rollout_s"]
+                               for t in steady)
+        refresh_s = statistics.mean(t["stepper_refresh_s"] for t in tm[1:])
+        dec = decay(out["vs"])
+        check(dec < 1.0, f"receding {solver} perturbation decay {dec:.4f}")
+        log(f"     {solver}: warm-up ({RH_WARMUP} macros) {t_warm:.2f} s; "
+            f"{RH_MACROS} macros {t_all:.2f} s: {mean['total']:.4f} s/macro, "
+            f"steady (macros 2-{RH_MACROS - 1}) {steady_s:.4f} s/macro; "
+            f"breakdown {({k: round(mean[k], 4) for k in stages})} s; device "
+            f"idle estimate {max(0.0, 1.0 - busy / steady_s):.3f}; stepper "
+            f"refresh on the worker thread {refresh_s:.4f} s a warm macro "
+            f"(beside the DRE sweep); decay "
+            f"dT/d0 {dec:.4f}; peak device memory {peak_gb:.2f} GB; conv_p2 "
+            f"{k1[key]} launches, spmm_tile {k2[key]}")
+        for t, rec in zip(tm, out["macros"]):
+            if solver == "dense_ns":
+                check(rec["ns_refresh_worst_residual"] <= RH_NS_CERTIFY,
+                      f"NS refresh certified: {rec['ns_refresh_residuals']}")
+                quality = (
+                    f"NS refresh residuals (f64) "
+                    f"{[f'{r:.1e}' for r in rec['ns_refresh_residuals']]}, "
+                    f"rebuilds {rec['ns_refresh_rebuilds']}")
+            else:
+                quality = (
+                    f"probe relres {rec['fgmres_probe_relres']:.2e}; FGMRES "
+                    + "; ".join(
+                        f"{st} {rec[f'fgmres_{st}']['solves']} solves, worst "
+                        f"{rec[f'fgmres_{st}']['worst_relres']:.2e}, "
+                        f"{rec[f'fgmres_{st}']['above_tol']} above tol"
+                        for st in ("dre", "rollout"))
+                    + f"; preconditioner re-inverted {rec['precond_refresh']}")
+            log(f"       macro {rec['macro']}: {t['total_s']:.4f} s "
+                f"({ {k: round(t[f'{k}_s'], 4) for k in stages} }); launches "
+                f"(conv_p2, spmm_tile) by stage "
+                f"{ {k: tuple(v.values()) for k, v in t['launches'].items()} }"
+                f"; {quality}")
+        outs[solver] = out
+    ks_ns, ks_mf = outs["dense_ns"]["ks"], outs["matfree"]["ks"]
+    gdev = [rel_err(a, b) for a, b in zip(ks_ns, ks_mf)]
+    check(max(gdev) <= RH_GAIN_TOL,
+          f"receding dense_ns vs matfree gains by macro: {gdev}")
+    vs32 = outs["dense_ns"]["vs"]
+    del outs
+
+    # the in-run f64 check: dense_ns in f64 on the same scenarios (the
+    # plain convection: K1 takes float32 only)
+    t0 = time.perf_counter()
+    conv64 = ConvKernel.build(np_ops["full"], cond, device=dev, dtype=f64)
+    out64 = receding_horizon_mpc(
+        sys64, conv64, np_ops, cond, RHConfig(**RH_CFG, solver="dense_ns"),
+        *sched, torch.as_tensor(v0_np).to(dev), n_macro=RH_F64_MACROS,
+    )
+    steps = RH_F64_MACROS * RH_CFG["apply"] + 1
+    g64 = rel_err(ks_ns[:RH_F64_MACROS].double(), out64["ks"])
+    y32 = torch.einsum("pn,stn->stp", sys64.c, vs32[:, :steps].double())
+    y64 = torch.einsum("pn,stn->stp", sys64.c, out64["vs"])
+    ydev = rel_err(y32, y64)
+    check(g64 <= GAIN_TOL, f"receding f32 vs f64 gains: {g64:.2e}")
+    check(ydev <= ROLLOUT_TOL, f"receding f32 vs f64 outputs: {ydev:.2e}")
+    log(f"     dense_ns vs matfree gains by macro "
+        f"{[f'{d:.2e}' for d in gdev]} (tol {RH_GAIN_TOL:g}); f32 vs f64 "
+        f"({RH_F64_MACROS} macros, {S_BATCH} scenarios, "
+        f"{time.perf_counter() - t0:.1f} s): gains {g64:.2e}, outputs C v "
+        f"{ydev:.2e} (tol {GAIN_TOL:g} and {ROLLOUT_TOL:g})")
+    return k1, k2, k2_abs
+
+
+def receding_lu_phase(dev):
+    """Phase 12 (b): the 'lu' tier (device re-linearization, host LUs) on
+    the reference test's cavity, on the card and on the CPU."""
+    import torch
+
+    from optconpy_tpu_torch.fem.device_conv import ConvKernel
+    from optconpy_tpu_torch.models.cavity import cavity_stokes_setup
+    from optconpy_tpu_torch.mpc import RHConfig, receding_horizon_mpc
+    from optconpy_tpu_torch.riccati import dre_shift_schedule_dae
+    from optconpy_tpu_torch.solvers.steady import solve_steady_nse_host
+
+    outs, secs = [], []
+    for device in (dev, torch.device("cpu")):
+        ops, sys, cond = cavity_stokes_setup(nx=6, device=device)
+        ops["vbar_full"], _ = solve_steady_nse_host(ops["full"], cond)
+        sched = dre_shift_schedule_dae(ops["A"], ops["M"], ops["J"],
+                                       RH_LU_CFG["dt"], num_shifts=8,
+                                       n_adi=16)
+        conv = ConvKernel.build(ops["full"], cond, device=device,
+                                dtype=torch.float64)
+        vbar = cond.restrict(ops["vbar_full"])
+        v0 = vbar[None] + 1e-2 * np.random.default_rng(SEED).standard_normal(
+            (4, sys.n))
+        out, sec = sync_time(lambda: receding_horizon_mpc(
+            sys, conv, ops, cond, RHConfig(**RH_LU_CFG), *sched,
+            torch.as_tensor(v0), n_macro=3,
+        ))
+        outs.append(out)
+        secs.append(sec)
+    devs = {k: rel_err(outs[0][k].cpu(), outs[1][k])
+            for k in ("vs", "us", "ks")}
+    check(max(devs.values()) <= RH_LU_TOL,
+          f"receding lu tier card vs CPU: {devs}")
+    log(f"[12b] receding lu tier, cavity nx=6, 4 scenarios x 3 macros, f64: "
+        f"card {secs[0]:.2f} s, CPU {secs[1]:.2f} s; card vs CPU "
+        f"{ {k: f'{v:.2e}' for k, v in devs.items()} } (tol {RH_LU_TOL:g})")
 
 
 def main() -> None:
@@ -1241,7 +1494,17 @@ def main() -> None:
     k2_paths = matfree_bench_phase(np_ops, cond, sys64, cache64,
                                    (sig, sseq, iseq), dev)
     t11 += time.perf_counter() - t0
-    del cache64, sys32, sys64
+    del cache64, sys32
+
+    # --- 12. receding-horizon MPC ---------------------------------------
+    t12 = time.perf_counter()
+    k1_rh, k2_rh, k2_rh_err = receding_phase(np_ops, cond, sys64, dev)
+    spmm_err = max(spmm_err, k2_rh_err)
+    del sys64
+    torch.cuda.empty_cache()
+    receding_lu_phase(dev)
+    t12 = time.perf_counter() - t12
+    log(f"[12] phase 12 wall {t12:.1f} s")
 
     # --- 9. config 3 ----------------------------------------------------
     spmm_launches, c3_ks64 = config3_phase(c3_ops, c3_sys64, c3_sched)
@@ -1260,6 +1523,8 @@ def main() -> None:
                      dev)
     )
     k2_paths["11d QuadConvKernel call (bench, f32)"] = quad_launches
+    k1_paths.update(k1_rh)
+    k2_paths.update(k2_rh)
     log(f"[11] phase 11 wall {t11 + t_c:.1f} s ((a), (b) and (d) "
         f"{t11:.1f} s, (c) {t_c:.1f} s)")
 

@@ -6,8 +6,10 @@ into the per-element tensor T0 at setup (fem/taylor_hood.py
 convection_tensor); each evaluation is a static gather, a per-element
 contraction and a deterministic slot gather-sum into the scalar dofs.
 
-ConvKernel is the plain torch path in any dtype. FusedConvKernel routes
-every free-dof evaluation through the wrapper of the CUDA kernel
+ConvKernel is the plain torch path in any dtype; it also forms the dense
+linearized convection L1(v) and L2(v) for re-linearization
+(linearized_parts, linearized_dense), summed in a fixed order.
+FusedConvKernel routes every free-dof evaluation through the wrapper of the CUDA kernel
 (ops/conv_kernel.py), over its patch plan: float32 on CUDA, ConvKernel's
 plain slot sums on the CPU. On CUDA it refuses full-dof evaluations.
 QuadConvKernel computes the same quadrature as four products of sparse
@@ -16,6 +18,7 @@ interpolation matrices through the SpMM kernel (ops/spmm_kernel.py).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -131,6 +134,70 @@ class ConvKernel:
             v_t, self.t0, self.tri_dofs, self.scatter_slots, self.free,
             self.dir_values, self.ns,
         )
+
+    @cached_property
+    def _pair_slots(self):
+        """The scalar (row, col) pairs of the element couplings and, for
+        each pair, the flat (element*36 + i*6 + k) entries summing into
+        it, padded with nt*36 (contributes zero): (rows, cols, slots) on
+        the device, built on the host once."""
+        tri = self.tri_dofs.cpu().numpy()
+        nt = tri.shape[0]
+        keys = (tri[:, :, None] * self.ns + tri[:, None, :]).reshape(-1)
+        order = np.argsort(keys, kind="stable")
+        uniq, start, counts = np.unique(
+            keys[order], return_index=True, return_counts=True
+        )
+        slots = np.full((uniq.shape[0], int(counts.max())), nt * 36,
+                        dtype=np.int64)
+        rank = np.arange(keys.shape[0]) - np.repeat(start, counts)
+        slots[np.repeat(np.arange(uniq.shape[0]), counts), rank] = order
+        dev = self.t0.device
+        return (torch.as_tensor(uniq // self.ns).to(dev),
+                torch.as_tensor(uniq % self.ns).to(dev),
+                torch.as_tensor(slots).to(dev))
+
+    def linearized_parts(self, v_full: torch.Tensor,
+                         include_l2: bool = True):
+        """Dense linearized convection (L1(v), L2(v)) on FULL dofs, each
+        (2ns, 2ns): L1 u = (v.grad)u (component-diagonal), L2 u =
+        (u.grad)v (component-coupling), as fem.taylor_hood's
+        convection_matrices assembles them on the host; L2 is None
+        without include_l2. Restrict to free dofs with mat[free][:, free]
+        at the call site.
+
+        Each coupling's element contributions are gathered through a
+        padded slot table and summed in a fixed order (no atomic
+        scatter), so the result repeats bit for bit on every device."""
+        ns = self.ns
+        rows, cols, slots = self._pair_slots
+        v_loc = v_full.reshape(2, ns)[:, self.tri_dofs].permute(1, 2, 0)
+
+        def pair_sums(loc):  # (nt, 6, 6) -> (n_pairs,)
+            flat = torch.cat([loc.reshape(-1), loc.new_zeros(1)])
+            return flat[slots].sum(dim=1)
+
+        # L1[(i,a),(k,a)] = sum_{j,b} T0[e,i,j,k,b] v_loc[e,j,b]
+        l1_pairs = pair_sums(torch.einsum("eijkb,ejb->eik", self.t0, v_loc))
+        l1 = v_full.new_zeros((2 * ns, 2 * ns))
+        for a in range(2):
+            l1[rows + a * ns, cols + a * ns] = l1_pairs
+        if not include_l2:
+            return l1, None
+        # L2[(i,a),(j,b)] = sum_k T0[e,i,j,k,b] v_loc[e,k,a]
+        l2_loc = torch.einsum("eijkb,eka->eijab", self.t0, v_loc)
+        l2 = torch.zeros_like(l1)
+        for a in range(2):
+            for b in range(2):
+                l2[rows + a * ns, cols + b * ns] = pair_sums(l2_loc[..., a, b])
+        return l1, l2
+
+    def linearized_dense(self, v_full: torch.Tensor,
+                         include_l2: bool = True) -> torch.Tensor:
+        """L1(v) + L2(v), or L1(v) without include_l2, on FULL dofs
+        (linearized_parts)."""
+        l1, l2 = self.linearized_parts(v_full, include_l2)
+        return l1 if l2 is None else l1.add_(l2)
 
     def to(self, device=None, dtype=None):
         return type(self)(

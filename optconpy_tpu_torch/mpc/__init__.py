@@ -1,4 +1,5 @@
-"""mpc/ — closed-loop rollouts: linear (LTI) and nonlinear NSE."""
+"""mpc/ — closed-loop rollouts (linear LTI and nonlinear NSE) and
+receding-horizon MPC."""
 from .nse_rollout import (
     NSEFusedCache,
     NSEMatfreeStepCache,
@@ -10,6 +11,7 @@ from .nse_rollout import (
     build_nse_stepper_matfree,
     nse_closed_loop_rollout,
 )
+from .receding import RHConfig, receding_horizon_mpc
 from .rollout import (
     batched_closed_loop,
     build_step_cache,
@@ -21,6 +23,7 @@ __all__ = [
     "NSEFusedCache",
     "NSEMatfreeStepCache",
     "NSEStepCache",
+    "RHConfig",
     "batched_closed_loop",
     "batched_nse_closed_loop",
     "batched_nse_closed_loop_fused",
@@ -31,4 +34,5 @@ __all__ = [
     "build_step_cache_dae",
     "closed_loop_rollout",
     "nse_closed_loop_rollout",
+    "receding_horizon_mpc",
 ]

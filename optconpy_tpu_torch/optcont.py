@@ -7,13 +7,17 @@ closed loop (nonlinear NSE or linear LTI) -> outputs and cost. The same
 config runs the same tiers as in the reference; everything runs on the
 card unless the caller passes device="cpu".
 
-Two behaviours of the reference are not copied: a Newton-Schulz inverse
-stack with a shift that missed its certification tolerance raises here
-instead of feeding the gains, and the 'inverse' tier stores its inverse
-stack under the caller's cache_dir.
+Three behaviours of the reference are not copied: a Newton-Schulz
+inverse stack with a shift that missed its certification tolerance
+raises here instead of feeding the gains; the 'inverse' tier stores its
+inverse stack under the caller's cache_dir; and the matrix-free tiers
+report their FGMRES solves (extras["fgmres"], a "fgmres" metrics record
+per stage) and warn, naming the stage, when a solve stopped at the cycle
+cap above fgmres_tol.
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Any
 
@@ -163,7 +167,10 @@ def optcon_nse(
     fgmres_tol within fgmres_cycles restarts. `metrics` receives the
     seconds of the stages setup, dre_backward_sweep, feedforward_sweep,
     step_build and closed_loop_rollout, each ending in a device
-    synchronize.
+    synchronize, and for a matrix-free tier the record of its FGMRES
+    solves (event "fgmres", also in extras["fgmres"][stage] with stage
+    "dre" or "rollout"; the DRE record is absent when the gains came
+    from the checkpoint).
     """
     from . import utils
     from .control import (
@@ -201,6 +208,7 @@ def optcon_nse(
     met.log(
         "operators", n=n, n_p=sys.n_p if constrained else 0, m=m, p=p_out
     )
+    fgmres_stats = {}  # stage -> FgmresStats of a matrix-free tier
 
     def compute_gains():
         from .riccati import (
@@ -221,6 +229,7 @@ def optcon_nse(
                     sys, dt, sig, tol=cfg.solver.fgmres_tol,
                     max_cycles=cfg.solver.fgmres_cycles,
                 )
+                fgmres_stats["dre"] = cache.stats
             elif dre_solver == "inverse_ns":
                 cache = _ns_cache(sys, dt, sig)
             else:
@@ -310,6 +319,7 @@ def optcon_nse(
                     scheme=cfg.solver.imex_scheme, tol=cfg.solver.fgmres_tol,
                     max_cycles=cfg.solver.fgmres_cycles,
                 )
+                fgmres_stats["rollout"] = stepper.saddle.stats
             else:
                 stepper = build_nse_stepper(
                     np_ops, cond, dt, device=device, dtype=dtype,
@@ -348,6 +358,17 @@ def optcon_nse(
         )
     )
     met.log("result", cost=cost, max_abs_y=float(np.abs(ys_np).max()))
+    fgmres = {stage: st.as_dict() for stage, st in fgmres_stats.items()}
+    for stage, rec in fgmres.items():
+        met.log("fgmres", stage=stage, **rec)
+        if rec["above_tol"]:
+            warnings.warn(
+                f"optcon_nse: {rec['above_tol']} of {rec['solves']} FGMRES "
+                f"solves of the {stage} stage stopped at the cycle cap above "
+                f"fgmres_tol {rec['tol']:g} (worst relative residual "
+                f"{rec['worst_relres']:.3e})",
+                RuntimeWarning, stacklevel=2,
+            )
 
     if vtk_dir is not None and constrained:
         from .utils.vtk import write_vtk_series
@@ -370,5 +391,6 @@ def optcon_nse(
             "metrics": met.records,
             "steady_info": np_ops.get("steady_info"),
             "cache_key": key,
+            **({"fgmres": fgmres} if fgmres else {}),
         },
     )

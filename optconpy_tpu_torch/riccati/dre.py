@@ -257,6 +257,7 @@ def dre_backward_sweep(
     idx_seq,
     n_newton: int = 2,
     r_max: int = 40,
+    k_init: torch.Tensor | None = None,
 ):
     """Backward DRE sweep; returns (zs, ks) with
 
@@ -269,7 +270,9 @@ def dre_backward_sweep(
     idx_seq: the cycled ADI
     schedule (numpy or tensors).
     Warm start: each step's Newton begins from the previous (later-time)
-    step's gain; the terminal step's from zero.
+    step's gain; the terminal step's from k_init (receding-horizon MPC
+    passes the previous macro step's gain; ks[nts] is k_init), else from
+    zero. The terminal factor stays 0.
     """
     n, m = sys.b.shape
     dtype, device = sys.b.dtype, sys.b.device
@@ -278,7 +281,10 @@ def dre_backward_sweep(
     inv_sqrt_dt = 1.0 / float(np.sqrt(dt))
 
     z = torch.zeros((n, r_max), dtype=dtype, device=device)
-    k = torch.zeros((m, n), dtype=dtype, device=device)
+    k = (
+        torch.zeros((m, n), dtype=dtype, device=device) if k_init is None
+        else k_init.to(device=device, dtype=dtype)
+    )
     zs = [z]  # backward order: [terminal, X_{nts-1}, ..., X_0]
     ks = [k]
     for _ in range(nts):

@@ -24,11 +24,16 @@ caches (consumed by riccati/lyap_adi.py); apply / apply_full as SaddleLU
 (consumed by mpc/nse_rollout.py), with an optional warm start. Inputs
 and outputs are in the original dof order; the orderings are applied at
 the boundary.
+
+FGMRES stops at max_cycles without raising. Every solve of a cache adds
+the relative residual it reached to the cache's FgmresStats record
+(from the one host read a restart cycle that fgmres makes anyway), so a
+caller can see how many solves ended above tol and how far.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -55,6 +60,37 @@ def _block_jacobi_inverses(f_sp, block: int, n_pad: int) -> np.ndarray:
         w = hi - lo
         blocks[t, :w, :w] = f_csr[lo:hi, :][:, lo:hi].toarray()
     return np.linalg.inv(blocks)
+
+
+@dataclass
+class FgmresStats:
+    """Record of a cache's FGMRES solves: the relative residual each
+    reached, hence how many solves, the worst, and how many ended above
+    tol (at the cycle cap). Mutable and held by reference, so the frozen
+    cache can feed it."""
+
+    tol: float
+    relres: list = field(default_factory=list)
+
+    def record(self, relres: float) -> None:
+        self.relres.append(relres)
+
+    @property
+    def solves(self) -> int:
+        return len(self.relres)
+
+    @property
+    def worst_relres(self) -> float:
+        return max(self.relres, default=0.0)
+
+    @property
+    def above_tol(self) -> int:
+        return sum(r > self.tol for r in self.relres)
+
+    def as_dict(self) -> dict:
+        return {"tol": self.tol, "solves": self.solves,
+                "worst_relres": self.worst_relres,
+                "above_tol": self.above_tol}
 
 
 @dataclass(frozen=True)
@@ -84,6 +120,11 @@ class SaddleMatfreeCache:
     m_krylov: int
     max_cycles: int
     tol: float
+    stats: FgmresStats = field(default=None, compare=False)
+
+    def __post_init__(self):
+        if self.stats is None:
+            object.__setattr__(self, "stats", FgmresStats(self.tol))
 
     @property
     def n(self) -> int:
@@ -148,8 +189,10 @@ class SaddleMatfreeCache:
         """The cache for a new A^T on the same mesh (M, J, orderings and
         the Schur inverse unchanged): repacks A^T and by default keeps the
         block-Jacobi preconditioner. FGMRES holds each solve to its
-        tolerance against the new operator, so a stale preconditioner
-        changes iteration counts only.
+        tolerance against the new operator within max_cycles, so a stale
+        preconditioner changes iteration counts, or leaves solves above
+        tol at the cycle cap. The new cache starts its own FgmresStats
+        record: each operator's solves are counted apart.
 
         m_sp: pass M to also re-invert the block-Jacobi blocks about the
         new operator, from float32-rounded operators (the preconditioner
@@ -173,7 +216,7 @@ class SaddleMatfreeCache:
                 for s in np.asarray(self.shifts, np.float32)
             ])
             new["bj_inv"] = torch.as_tensor(bj).to(device=device, dtype=dtype)
-        return dataclasses.replace(self, **new)
+        return dataclasses.replace(self, stats=None, **new)
 
     # ---- internals (in the permuted ordering) ----
 
@@ -207,6 +250,7 @@ class SaddleMatfreeCache:
             kop, torch.cat([rv, rp]), precond=prec, m=self.m_krylov,
             tol=self.tol, max_cycles=self.max_cycles, x0=x0,
         )
+        self.stats.record(rel)
         return x[:n], x[n:], rel
 
     # ---- public contract (original dof order) ----
@@ -214,7 +258,8 @@ class SaddleMatfreeCache:
     def solve_relres(self, i: int, rhs: torch.Tensor):
         """(x_v, relres) with [[A^T + s_i M, J^T], [J, 0]] [x_v; p] =
         [rhs; 0]: the solve and the FGMRES relative residual it reached
-        (FGMRES stops at max_cycles without raising)."""
+        (FGMRES stops at max_cycles without raising; stats records it, as
+        for every solve)."""
         squeeze = rhs.ndim == 1
         if squeeze:
             rhs = rhs[:, None]

@@ -24,6 +24,10 @@ not finite or not below 1 (Newton-Schulz diverged) raises. The residual
 that certifies is evaluated in float64 whatever the stack's dtype: in
 float32, v - A(s)(X v) cancels terms that grow with |s|, so its
 float32 evaluation has a floor of its own above the iterate's error.
+
+NSShiftStack keeps the full inverses and refreshes them across the
+re-linearizations of receding-horizon MPC, each refresh certified by the
+same probe and rebuilt from the ladder where it misses.
 """
 from __future__ import annotations
 
@@ -54,6 +58,8 @@ MAX_SEED_PASSES = 12
 POWER_ITERS = 24
 N_PROBES = 8
 SEED = 17
+REFRESH_SEED = 3  # probes of NSShiftStack.refresh (the reference's key)
+REFRESH_PASSES = 2  # the reference's passes per shift per refresh
 CERTIFY_ROW_CHUNK = 2048  # rows of X cast to float64 at a time
 
 
@@ -216,32 +222,18 @@ def _rungs_between(s_from: float, s_to: float) -> list[float]:
     return out
 
 
-def build_inverse_stack_ns(
-    at_sp, m_sp, j_sp, sig, *, device, dtype, certify_tol: float = 5e-4,
-    verbose=None,
-):
-    """Build the (J, n, n) shifted-saddle velocity-block inverse stack on
-    `device` in `dtype`. Same output contract as
-    SaddleShiftedInverseCache.build_sparse_host (original dof order).
-
-    Returns (inv_stack, info): info["residuals"][i] is shift i's probed
-    residual evaluated in float64 and info["certified"][i] whether it is
-    <= certify_tol (further passes run while it is not, up to
-    MAX_CERTIFY_PASSES); info["residuals_working"][i] is the same probe
-    evaluated in `dtype`. Also the ladder's counts and the build time in
-    seconds. Raises if a residual is not finite or >= 1 (Newton-Schulz
-    diverged).
-    """
-    log = verbose or (lambda *_: None)
-    t_all = time.perf_counter()
-    at_r, m_r, j_r, perm, _ = ordered_operators(at_sp, m_sp, j_sp)
-    pack = SaddleOpsPack.pack(at_r, m_r, j_r, device=device, dtype=dtype)
-    pack64 = None
-    if dtype != torch.float64:
-        pack64 = SaddleOpsPack.pack(at_r, m_r, j_r, device=device,
-                                    dtype=torch.float64)
+def _ladder(pack: SaddleOpsPack, pack64, sig_np, certify_tol: float, gen,
+            log, store) -> dict:
+    """Steps 1-4 of the build for the shifts sig_np: M^-1, the pressure
+    Schur inverse, the mass-dominated seed and the geometric ladder down
+    to each shift, with the certifying probe at each. store(pos, x, res,
+    res_w, extra) receives shift pos's full permuted iterate, its probed
+    residual in float64 and in the working dtype and its extra passes,
+    in ladder order (decreasing |s|). Returns the per-shift records and
+    the ladder's counts (build_inverse_stack_ns's info without build_s).
+    Raises if a residual is not finite or >= 1."""
     n, n_p = pack.n, pack.n_p
-    gen = torch.Generator(device=device).manual_seed(SEED)
+    dtype, device = pack.m_diag.dtype, pack.m_diag.device
     ns_passes = 0
 
     # --- 1. M^-1 by Newton-Schulz from a scaled-diagonal seed ---
@@ -268,7 +260,6 @@ def build_inverse_stack_ns(
     del eye_p, schur
 
     # --- 3. mass-dominated synthetic seed ---
-    sig_np = np.asarray(sig, np.float64)
     order = np.argsort(-np.abs(sig_np))
     s_sorted = sig_np[order]
     v0 = torch.randn((n, 1), generator=gen, dtype=dtype, device=device)
@@ -289,8 +280,6 @@ def build_inverse_stack_ns(
         f"{seed_passes} refine passes, residual {r_seed:.2e}")
 
     # --- 4. geometric ladder s_huge -> shifts, NS at every rung ---
-    inv_stack = torch.empty((len(sig_np), n, n), dtype=dtype, device=device)
-    iperm = torch.as_tensor(np.argsort(perm)).to(device)
     residuals = [None] * len(sig_np)
     working = [None] * len(sig_np)
     certified = [None] * len(sig_np)
@@ -324,14 +313,11 @@ def build_inverse_stack_ns(
         working[pos] = res_w
         certified[pos] = res <= certify_tol
         extras[pos] = extra
-        # velocity block, back in the original dof order
-        inv_stack[pos] = x[iperm[:, None], iperm]
+        store(pos, x, res, res_w, extra)
         flag = "certified" if certified[pos] else "NOT certified"
         log(f"  shift {s_target:12.2f}: residual {res:.2e} (in {dtype}: "
             f"{res_w:.2e}) (+{extra} extra passes, {flag})")
-    if inv_stack.is_cuda:
-        torch.cuda.synchronize(inv_stack.device)
-    info = {
+    return {
         "residuals": residuals,
         "residuals_working": working,
         "certified": certified,
@@ -343,6 +329,181 @@ def build_inverse_stack_ns(
         "minv_residual": res_m,
         "ladder_rungs": n_rungs,
         "ns_passes": ns_passes,
-        "build_s": time.perf_counter() - t_all,
     }
-    return inv_stack, info
+
+
+def _sync(t: torch.Tensor) -> None:
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+def _packs(at_sp, m_sp, j_sp, *, device, dtype):
+    """The pencil's packs in the RCM ordering: (pack, pack64 (the float64
+    pack the certifying probe reads; None for a float64 stack), perm,
+    iperm on the device)."""
+    at_r, m_r, j_r, perm, _ = ordered_operators(at_sp, m_sp, j_sp)
+    pack = SaddleOpsPack.pack(at_r, m_r, j_r, device=device, dtype=dtype)
+    pack64 = None
+    if dtype != torch.float64:
+        pack64 = SaddleOpsPack.pack(at_r, m_r, j_r, device=device,
+                                    dtype=torch.float64)
+    return pack, pack64, perm, torch.as_tensor(np.argsort(perm)).to(device)
+
+
+def build_inverse_stack_ns(
+    at_sp, m_sp, j_sp, sig, *, device, dtype, certify_tol: float = 5e-4,
+    verbose=None,
+):
+    """Build the (J, n, n) shifted-saddle velocity-block inverse stack on
+    `device` in `dtype`. Same output contract as
+    SaddleShiftedInverseCache.build_sparse_host (original dof order).
+
+    Returns (inv_stack, info): info["residuals"][i] is shift i's probed
+    residual evaluated in float64 and info["certified"][i] whether it is
+    <= certify_tol (further passes run while it is not, up to
+    MAX_CERTIFY_PASSES); info["residuals_working"][i] is the same probe
+    evaluated in `dtype`. Also the ladder's counts and the build time in
+    seconds. Raises if a residual is not finite or >= 1 (Newton-Schulz
+    diverged).
+    """
+    log = verbose or (lambda *_: None)
+    t_all = time.perf_counter()
+    pack, pack64, _, iperm = _packs(at_sp, m_sp, j_sp, device=device,
+                                    dtype=dtype)
+    sig_np = np.asarray(sig, np.float64).reshape(-1)
+    stack = []
+
+    def store(pos, x, *_):
+        # allocated at the first shift, after the seed's work arrays
+        if not stack:
+            stack.append(torch.empty((len(sig_np), pack.n, pack.n),
+                                     dtype=dtype, device=device))
+        # velocity block, back in the original dof order
+        stack[0][pos] = x[iperm[:, None], iperm]
+
+    info = _ladder(
+        pack, pack64, sig_np, certify_tol,
+        torch.Generator(device=device).manual_seed(SEED), log, store,
+    )
+    _sync(stack[0])
+    info["build_s"] = time.perf_counter() - t_all
+    return stack[0], info
+
+
+class NSShiftStack:
+    """Receding-horizon helper: a device-resident stack of full
+    shifted-saddle inverses that refreshes in place across MPC
+    re-linearizations and exposes the dense-ADI cache view
+    (SaddleShiftedInverseCache contract). Counterpart of the reference's
+    NSShiftStack, whose refresh is not certified: here every refresh is.
+
+    refresh(at_sp_new) repacks A^T and runs REFRESH_PASSES Newton-Schulz
+    passes per shift from the previous inverse, then probes the residual
+    as the build does (in float64 for a float32 stack). While a shift
+    misses certify_tol, further passes run, up to MAX_CERTIFY_PASSES; a
+    shift that still misses, or whose residual is not finite or >= 1
+    (the jump left Newton-Schulz's basin), is rebuilt from the ladder
+    about the new operator. A build or rebuild that does not certify
+    raises. With no further pass, the refresh is the plain 2-pass one.
+
+    After each build or refresh: residuals, residuals_working, certified
+    and extra_passes per shift, and rebuilds, the number of shifts the
+    last refresh rebuilt.
+
+    Memory: the (J, n + n_p, n + n_p) full inverses plus the (J, n, n)
+    velocity-block view (config 4 in float32: 0.81 + 0.62 GB), and the
+    float64 packs of a float32 stack.
+    """
+
+    def __init__(self, at_sp, m_sp, j_sp, sig, *, device, dtype,
+                 certify_tol: float = 5e-4):
+        self.sig = np.asarray(sig, np.float64).reshape(-1)
+        self.certify_tol = certify_tol
+        self.pack, self.pack64, self.perm, self.iperm = _packs(
+            at_sp, m_sp, j_sp, device=device, dtype=dtype)
+        self.n = self.pack.n
+        n_shifts = len(self.sig)
+        # allocated at the first shift, after the seed's work arrays
+        self.full = self.vv = None
+        self.residuals = [None] * n_shifts
+        self.residuals_working = [None] * n_shifts
+        self.certified = [False] * n_shifts
+        self.extra_passes = [0] * n_shifts
+        self.rebuilds = 0
+        _ladder(self.pack, self.pack64, self.sig, certify_tol,
+                torch.Generator(device=device).manual_seed(SEED),
+                lambda *_: None, self._store)
+        _sync(self.vv)
+        self._check("build")
+
+    def _check(self, what: str) -> None:
+        if not all(self.certified):
+            missed = [float(s) for s, ok in zip(self.sig, self.certified)
+                      if not ok]
+            raise RuntimeError(
+                f"NSShiftStack {what}: shifts {missed} did not certify at "
+                f"{self.certify_tol:g} (residuals {self.residuals})"
+            )
+
+    def _store(self, i: int, x: torch.Tensor, res, res_w, extra) -> None:
+        """Shift i's iterate and its records."""
+        if self.full is None:
+            shape = (len(self.sig),) + tuple(x.shape)
+            self.full = x.new_empty(shape)
+            self.vv = x.new_empty((len(self.sig), self.n, self.n))
+        self.full[i] = x
+        self.vv[i] = x[self.iperm[:, None], self.iperm]
+        self.residuals[i], self.residuals_working[i] = res, res_w
+        self.certified[i] = res <= self.certify_tol
+        self.extra_passes[i] = extra
+
+    def cache(self):
+        from .saddle import SaddleShiftedInverseCache
+
+        return SaddleShiftedInverseCache(self.vv, self.n)
+
+    def refresh(self, at_sp_new) -> "NSShiftStack":
+        """Certified value-refresh for a re-linearized A^T (same pattern
+        and orderings; class docstring). Returns self (mutated)."""
+        import dataclasses
+
+        import scipy.sparse as sp
+
+        at_r = sp.csr_matrix(at_sp_new)[self.perm][:, self.perm].tocsr()
+        dtype, device = self.vv.dtype, self.vv.device
+        self.pack = dataclasses.replace(
+            self.pack, at=pack_spmm(at_r, device=device, dtype=dtype)
+        )
+        if self.pack64 is not None:
+            self.pack64 = dataclasses.replace(
+                self.pack64,
+                at=pack_spmm(at_r, device=device, dtype=torch.float64),
+            )
+        gen = torch.Generator(device=device).manual_seed(REFRESH_SEED)
+        missed = []
+        for i, s in enumerate(self.sig.tolist()):
+            x = self.full[i]
+            for _ in range(REFRESH_PASSES):
+                x = _ns_pass_saddle(self.pack, s, x)
+            res_w, res = _certify_probe(self.pack, self.pack64, s, x, gen)
+            extra = 0
+            while self.certify_tol < res < 1.0 and extra < MAX_CERTIFY_PASSES:
+                x = _ns_pass_saddle(self.pack, s, x)
+                extra += 1
+                res_w, res = _certify_probe(self.pack, self.pack64, s, x, gen)
+            if res <= self.certify_tol:  # False for NaN
+                self._store(i, x, res, res_w, extra)
+            else:
+                missed.append(i)
+            del x
+        self.rebuilds = len(missed)
+        if missed:
+            _ladder(
+                self.pack, self.pack64, self.sig[missed], self.certify_tol,
+                torch.Generator(device=device).manual_seed(SEED),
+                lambda *_: None,
+                lambda pos, x, *rec: self._store(missed[pos], x, *rec),
+            )
+            self._check("rebuild")
+        _sync(self.vv)
+        return self

@@ -25,6 +25,11 @@ The matrix-free tier: FGMRES and SaddleMatfreeCache (f32 and f64, the
 cylinder's DRE pencil) and the reference-LU Krylov caches on the card
 against the CPU, QuadConvKernel against ConvKernel's plain version, and
 the cavity driver on the matfree tiers, card against CPU (1e-8).
+
+Receding-horizon MPC: the dense re-linearization repeats bit for bit on
+the card and matches the CPU (1e-12); NSShiftStack's build and refresh
+on the card match the CPU (1e-10); the dense_ns macro loop on the
+cavity, card against CPU (1e-8).
 """
 import dataclasses
 from dataclasses import replace
@@ -63,6 +68,7 @@ from optconpy_tpu_torch.riccati import (
 from optconpy_tpu_torch.solvers.krylov import ShiftedKrylovCache, fgmres
 from optconpy_tpu_torch.solvers.matfree import SaddleMatfreeCache
 from optconpy_tpu_torch.solvers.ns_inverse import (
+    NSShiftStack,
     SaddleOpsPack,
     build_inverse_stack_ns,
 )
@@ -548,3 +554,85 @@ def test_matfree_f32_driver_launches_kernels(gpu, tmp_path):
     res = optcon_nse(cfg, cache_dir=str(tmp_path), device=gpu)
     assert conv_kernel.launches - conv0 == cfg.time.nts + 1
     assert np.isfinite(res.ys).all() and np.isfinite(res.us).all()
+
+
+# --- receding-horizon MPC ------------------------------------------------
+
+
+def test_linearized_dense_on_card_repeats_and_matches_cpu(cylinder):
+    """The (2 ns)^2 f64 re-linearization at the bench shape (0.19 GB):
+    its fixed-order slot sums repeat bit for bit on the card."""
+    dev, np_ops, cond = cylinder
+    v = torch.as_tensor(np_ops["vbar_full"])
+    got = ConvKernel.build(np_ops["full"], cond, device=dev,
+                           dtype=torch.float64).linearized_dense(v.to(dev))
+    conv_cpu = ConvKernel.build(np_ops["full"], cond, device=CPU,
+                                dtype=torch.float64)
+    again = ConvKernel.build(np_ops["full"], cond, device=dev,
+                             dtype=torch.float64).linearized_dense(v.to(dev))
+    assert torch.equal(got, again)
+    assert _rel(got.cpu(), conv_cpu.linearized_dense(v)) <= 1e-12
+
+
+def _rh_cavity():
+    from optconpy_tpu_torch.solvers.steady import solve_steady_nse_host
+
+    ops, sys, cond = cavity_stokes_setup(nx=4, device=CPU)
+    ops["vbar_full"], _ = solve_steady_nse_host(ops["full"], cond)
+    sched = dre_shift_schedule_dae(ops["A"], ops["M"], ops["J"], 0.02,
+                                   num_shifts=3, n_adi=6)
+    return ops, sys, cond, sched
+
+
+def _at_about(ops, cond, v_full, dt=0.02):
+    import scipy.sparse as sp
+
+    from optconpy_tpu_torch.fem.taylor_hood import convection_matrices
+
+    l1, l2 = convection_matrices(ops["full"], v_full)
+    a = sp.csr_matrix(cond.mat_inner(ops["full"]["A"] - l1 - l2))
+    return (a.T - sp.csr_matrix(ops["M"]) / (2.0 * dt)).tocsr()
+
+
+def test_ns_shift_stack_on_card_matches_cpu(gpu):
+    """Build about the steady flow, refresh about 1.5x it: card vs CPU in
+    f64; the f32 stack on the card certifies its refresh in f64."""
+    ops, _, cond, (sig, _, _) = _rh_cavity()
+    at0 = _at_about(ops, cond, ops["vbar_full"])
+    at1 = _at_about(ops, cond, 1.5 * ops["vbar_full"])
+    stacks = {d: NSShiftStack(at0, ops["M"], ops["J"], sig, device=d,
+                              dtype=torch.float64) for d in (gpu, CPU)}
+    assert _rel(stacks[gpu].vv.cpu(), stacks[CPU].vv) <= 1e-10
+    for st in stacks.values():
+        st.refresh(at1)
+        assert all(st.certified) and st.rebuilds == 0
+    assert _rel(stacks[gpu].vv.cpu(), stacks[CPU].vv) <= 1e-10
+    st32 = NSShiftStack(at0, ops["M"], ops["J"], sig, device=gpu,
+                        dtype=torch.float32)
+    st32.refresh(at1)
+    assert all(st32.certified) and max(st32.residuals) <= 5e-4
+    assert _rel(st32.vv.double().cpu(), stacks[CPU].vv) <= 1e-4
+
+
+def test_dense_ns_receding_on_card_matches_cpu(gpu):
+    """The dense_ns macro loop (tests/test_receding_mpc.py:296's setup,
+    4 scenarios x 3 macros, f64) on the card against the CPU."""
+    from optconpy_tpu_torch.mpc import RHConfig, receding_horizon_mpc
+
+    ops, sys, cond, sched = _rh_cavity()
+    cfg = RHConfig(horizon=3, apply=3, dt=0.02, alpha=1e-6, n_newton=1,
+                   r_max=8, warm_n_adi=4, fgmres_tol=1e-10, fgmres_cycles=12,
+                   solver="dense_ns")
+    vbar = cond.restrict(ops["vbar_full"])
+    v0 = vbar[None] + 1e-3 * np.random.default_rng(0).standard_normal(
+        (4, sys.n))
+    outs = {}
+    for d in (gpu, CPU):
+        conv = ConvKernel.build(ops["full"], cond, device=d,
+                                dtype=torch.float64)
+        outs[d] = receding_horizon_mpc(sys.to(d), conv, ops, cond, cfg,
+                                       *sched, torch.as_tensor(v0),
+                                       n_macro=3)
+    for key in ("vs", "us", "ks"):
+        assert _rel(outs[gpu][key].cpu(), outs[CPU][key]) <= 1e-8, key
+    assert all(r["ns_refresh_rebuilds"] == 0 for r in outs[gpu]["macros"])

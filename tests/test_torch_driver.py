@@ -284,6 +284,44 @@ def test_matfree_tiers_match_reference(matfree_runs, tiers):
     assert not list(t_dir.glob("dreinv_*"))
 
 
+@pytest.mark.parametrize("tiers, stages", [
+    ({"step_solver": "matfree"}, {"dre", "rollout"}),
+    ({"dre_solver": "matfree"}, {"dre"}),
+    ({"step_solver": "matfree", "dre_solver": "auto"}, {"dre", "rollout"}),
+])
+def test_matfree_tiers_report_fgmres(matfree_runs, tiers, stages):
+    """extras["fgmres"] holds the record of each matrix-free stage's
+    solves (none above tol at 1e-11, 12 cycles), and the metrics stream
+    a "fgmres" record per stage."""
+    _, got, _ = matfree_runs(tiers)
+    rec = got.extras["fgmres"]
+    assert set(rec) == stages
+    for stage in stages:
+        assert rec[stage]["solves"] > 0
+        assert rec[stage]["above_tol"] == 0
+        assert 0.0 < rec[stage]["worst_relres"] <= 1e-11
+    logged = {r["stage"]: r for r in got.extras["metrics"]
+              if r["event"] == "fgmres"}
+    assert {k: {f: v[f] for f in rec[k]} for k, v in logged.items()} == rec
+
+
+def test_matfree_under_solve_warns(tmp_path):
+    """One FGMRES cycle at a tolerance below float64's roundoff: every
+    solve of a nonzero rhs stops above tol; the driver counts them per
+    stage and warns, naming the stage, without raising."""
+    cfg = _solver(_matfree_cfg(tu, {"step_solver": "matfree",
+                                    "dre_solver": "auto"}),
+                  fgmres_tol=1e-17, fgmres_cycles=1)
+    with pytest.warns(RuntimeWarning) as caught:
+        got = optcon_nse(cfg, cache_dir=str(tmp_path), device=CPU)
+    text = " ".join(str(w.message) for w in caught)
+    assert "dre stage" in text and "rollout stage" in text
+    for rec in got.extras["fgmres"].values():
+        assert 0 < rec["above_tol"] <= rec["solves"]
+        assert rec["worst_relres"] > rec["tol"]
+    assert np.isfinite(got.ys).all()
+
+
 @pytest.mark.parametrize("field", ["matmul_precision",
                                    "rollout_matmul_precision"])
 def test_tf32_precision_raises(tmp_path, field):

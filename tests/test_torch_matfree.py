@@ -180,6 +180,38 @@ def test_solve_relres(shifted):
     assert x1.shape == (t_sys.n,) and rel1 <= MF["tol"]
 
 
+def test_fgmres_stats_count_every_solve(shifted):
+    """solve, solve_relres and apply_full each add one record; at the
+    fixture's settings (tol 1e-11, 12 cycles) none ends above tol."""
+    _, _, t_sys, _, mf, _, _ = shifted
+    rng = np.random.default_rng(4)
+    rhs = _t(rng.standard_normal((t_sys.n, 2)))
+    before = mf.stats.solves
+    mf.solve(2, rhs)
+    _, rel = mf.solve_relres(2, rhs)
+    mf.apply_full(rhs, _t(rng.standard_normal((t_sys.n_p, 2))), i=2)
+    assert mf.stats.solves == before + 3
+    assert mf.stats.above_tol == 0
+    assert rel <= mf.stats.worst_relres <= MF["tol"]
+    assert mf.stats.as_dict()["tol"] == MF["tol"]
+
+
+def test_fgmres_stats_count_solves_above_tol(shifted):
+    """One cycle at tol 1e-14: every solve stops above tol, is counted,
+    and the worst relres exceeds tol; the solves still return."""
+    _, t_ops, t_sys, sig, _, _, _ = shifted
+    mf = SaddleMatfreeCache.build(
+        t_ops["A"].T.tocsr(), t_ops["M"], t_ops["J"], sig[:2], device=CPU,
+        dtype=F64, **dict(MF, max_cycles=1, tol=1e-14, m_krylov=4),
+    )
+    rhs = _t(np.random.default_rng(5).standard_normal((t_sys.n, 2)))
+    for i in range(2):
+        mf.solve(i, rhs)
+        mf.apply(rhs, i=i)
+    assert mf.stats.solves == mf.stats.above_tol == 4
+    assert mf.stats.worst_relres > 1e-14
+
+
 def test_adi_matches_lu_and_reference(shifted):
     j_sys, _, t_sys, sig, mf, j_mf, lu = shifted
     n_adi = 12
@@ -228,10 +260,15 @@ def test_refresh_operator_matches_full_build(shifted, refreshed, reinvert):
     base, at_new, full, sig4 = refreshed
     new = base.refresh_operator(at_new, m_sp=t_ops["M"] if reinvert else None)
     assert (new.bj_inv is base.bj_inv) != reinvert
+    # the refreshed cache starts its own record of solves
+    assert new.stats is not base.stats and new.stats.solves == 0
+    base_solves = base.stats.solves
     assert new.ops.m is base.ops.m and new.lp_inv is base.lp_inv
     rhs = _t(np.random.default_rng(1).standard_normal((t_sys.n, 3)))
     for i in range(len(sig4)):
         assert _rel(new.solve(i, rhs), full.solve(i, rhs)) < 1e-8, i
+    assert new.stats.solves == len(sig4) and new.stats.above_tol == 0
+    assert base.stats.solves == base_solves
 
 
 def test_dre_sweep_matches_reference_and_lu(shifted):

@@ -186,12 +186,14 @@ def test_port_never_imports_jax():
         " 'control.lqr', 'mpc.rollout', 'utils', 'utils.cache',"
         " 'utils.config', 'utils.metrics', 'utils.vtk', 'ops.dense',"
         " 'solvers.shifted', 'fem.heat1d', 'fem.operators', 'solvers.krylov',"
-        " 'solvers.matfree', 'fem.device_conv'):\n"
+        " 'solvers.matfree', 'fem.device_conv', 'mpc.receding'):\n"
         "    assert 'optconpy_tpu_torch.' + m in sys.modules, m\n"
         "from optconpy_tpu_torch.solvers.krylov import fgmres\n"
         "from optconpy_tpu_torch.solvers.matfree import SaddleMatfreeCache\n"
         "from optconpy_tpu_torch.fem.device_conv import QuadConvKernel\n"
         "from optconpy_tpu_torch.mpc import build_nse_stepper_matfree\n"
+        "from optconpy_tpu_torch.mpc.receding import receding_horizon_mpc\n"
+        "from optconpy_tpu_torch.solvers.ns_inverse import NSShiftStack\n"
         "from optconpy_tpu_torch.riccati import ("
         "build_dre_cache_dae_krylov, build_dre_cache_dae_matfree)\n"
         "assert 'jax' not in sys.modules\n"
