@@ -78,7 +78,26 @@ the card. Phases:
      FGMRES records; dense_ns vs matfree gains on every macro (<= 1e-4);
      dense_ns in f64 for the first 2 macros on the same scenarios: gains
      and outputs C v (<= 1e-4). (b) the lu tier on the reference test's
-     cavity, card vs CPU (vs, us, ks <= 1e-10).
+     cavity, card vs CPU (vs, us, ks <= 1e-10);
+ 13. the config-5 Re-bucket parameter sweep (optconpy_tpu_torch.parallel)
+     at the shape of scripts/sweep_config5.py: 8 buckets over Re 60-150,
+     8,192 drawn Re values (seed 0) in ragged buckets padded to 1,280,
+     200 steps, f32, TF32 off; per-bucket gains (matrix-free DRE, 8
+     shifts x 16 ADI, 8 steps, rank 24) and the Newton-Schulz stepper
+     chain, every bucket certified in f64 at 1e-4 (every SpMM input the
+     gains and the chain hand the kernel held against its plain version,
+     a repeat bit for bit); the first and last bucket's f32 gains vs
+     f64 NS-tier gains (<= 1e-4); the sweep first and 3 warm (bit-equal
+     outputs), real and padded solves/s, peak memory, launches (K1 one a
+     step, K2 none); K1 on the sweep's own first-step X at B = 10,240 vs
+     plain (<= 1e-5, repeats bit for bit); the masked statistics (exact
+     counts, finite, unchanged with NaN padded rows) beside
+     SWEEP_r05.json's (the JAX package on a TPU, labelled so); the f32
+     sweep vs f64 on the host-LU stepper tier for 2 real scenarios of the
+     first and last bucket (<= 1e-4), and the same scenarios in f32 on
+     f32 host-LU and host-inverse steppers (printed: the f32 gap without
+     the chain's inverses); a profiler listing of a warm sweep
+     (GEMM and K1 shares, device busy, no copy kernel a step).
 
 Every failed check raises, so the exit code is non-zero. The last three
 lines are the kernels JSON (each kernel's launches on every path it
@@ -175,6 +194,25 @@ RH_NS_CERTIFY = 5e-4  # every NS refresh, evaluated in f64
 # 3-macro config (:55), 4 scenarios, f64, card vs CPU.
 RH_LU_CFG = dict(horizon=8, apply=4, dt=0.02, alpha=1e-8, r_max=24)
 RH_LU_TOL = 1e-10
+
+# Phase 13: the config-5 parameter sweep at the shape of
+# scripts/sweep_config5.py (SWEEP_r05.json): 8 Re buckets over [60, 150],
+# 8,192 Re values drawn uniformly (seed 0) and assigned to the nearest
+# bucket, each bucket padded to a multiple of 256; gains from 8 DRE steps
+# of 16 ADI iterations (8 shifts, rank 24, one Newton step) on the
+# matrix-free tier, steppers from the Newton-Schulz chain certified at
+# 1e-4, 200 steps, f32. The f64 check runs the first and the last bucket's
+# first 2 real scenarios on the host-LU stepper tier.
+SW_RE = (60.0, 150.0)
+SW_BUCKETS = 8
+SW_SCENARIOS = 8192
+SW_PAD = 256
+SW_NTS = 200
+SW_GAINS = dict(num_shifts=8, n_adi=16, nts_gain=8, r_max=24)
+SW_CERTIFY = 1e-4
+SW_REF_S = 2
+SW_WARM = 3
+SW_RECORD = "SWEEP_r05.json"  # the JAX package's run on a TPU v5 lite
 
 # Times of the kernels this port replaced, on an NVIDIA H100 80GB HBM3 at
 # 700 W (PERF.md), printed beside this run's: the first convection kernel
@@ -1214,6 +1252,337 @@ def receding_lu_phase(dev):
         f"{ {k: f'{v:.2e}' for k, v in devs.items()} } (tol {RH_LU_TOL:g})")
 
 
+@contextmanager
+def recorded_conv_input():
+    """Inside the block, the convection kernel's wrapper keeps a copy of
+    the first X it is handed (the path's own input). Yields a list that
+    holds it after the first call."""
+    from optconpy_tpu_torch.ops import conv_kernel
+
+    wrapper, seen = conv_kernel.conv_inner, []
+
+    def recording(v_t, conv):
+        if not seen:
+            seen.append(v_t.clone())
+        return wrapper(v_t, conv)
+
+    conv_kernel.conv_inner = recording
+    try:
+        yield seen
+    finally:
+        conv_kernel.conv_inner = wrapper
+
+
+@contextmanager
+def counted_spmm_launches(module, name: str):
+    """Inside the block, module.name counts the SpMM kernel launches of
+    each of its calls. Yields the list of those counts, one a call."""
+    from optconpy_tpu_torch.ops import spmm_kernel
+
+    fn, counts = getattr(module, name), []
+
+    def counting(*args, **kwargs):
+        k0 = spmm_kernel.launches
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            counts.append(spmm_kernel.launches - k0)
+
+    setattr(module, name, counting)
+    try:
+        yield counts
+    finally:
+        setattr(module, name, fn)
+
+
+def sweep_phase(dev, card: str):
+    """Phase 13: the config-5 Re-bucket parameter sweep in f32 at the
+    shape of scripts/sweep_config5.py. Returns each kernel's launches by
+    path, K1's record at the sweep's width and both kernels' largest
+    absolute errors against their plain versions on the path's inputs."""
+    import torch
+
+    from optconpy_tpu_torch import riccati
+    from optconpy_tpu_torch.fem.device_conv import ConvKernel, FusedConvKernel
+    from optconpy_tpu_torch.models.cylinder import cylinder_setup
+    from optconpy_tpu_torch.mpc import (
+        NSEStepCache,
+        build_nse_stepper,
+        nse_sweep_outputs,
+    )
+    from optconpy_tpu_torch.ops import conv_kernel, spmm_kernel
+    from optconpy_tpu_torch.parallel import param_sweep
+    from optconpy_tpu_torch.parallel import (
+        assign_re_buckets,
+        build_sweep_gains_and_caches,
+        masked_sweep_stats,
+        sweep_rollout,
+    )
+    from optconpy_tpu_torch.riccati import (
+        build_dre_cache_dae_ns,
+        dre_backward_sweep,
+        dre_shift_schedule_dae,
+    )
+
+    f32, f64 = torch.float32, torch.float64
+    t_phase = time.perf_counter()
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmul off")
+    check(torch.backends.cudnn.allow_tf32 is False, "TF32 cuDNN off")
+    re_buckets = np.linspace(*SW_RE, SW_BUCKETS)
+    rng = np.random.default_rng(SEED)
+    draw = rng.uniform(*SW_RE, SW_SCENARIOS)
+    counts = np.bincount(assign_re_buckets(draw, re_buckets),
+                         minlength=SW_BUCKETS)
+    s_max = int(-(-counts.max() // SW_PAD) * SW_PAD)
+    real, padded = int(counts.sum()) * SW_NTS, SW_BUCKETS * s_max * SW_NTS
+
+    t0 = time.perf_counter()
+    setups = [cylinder_setup(re=float(re), refinement=REFINEMENT, device=dev,
+                             dtype=f64) for re in re_buckets]
+    t_setup = time.perf_counter() - t0
+    conv = FusedConvKernel.build(setups[0][0]["full"], setups[0][2],
+                                 device=dev)
+    sys32 = setups[0][1].to(dtype=f32)
+    n = sys32.n
+    steady = [f"{s[0]['steady_info']['residual']:.1e}" for s in setups]
+    log(f"[13] config-5 sweep: {SW_BUCKETS} Re buckets "
+        f"{np.round(re_buckets, 1).tolist()}, {SW_SCENARIOS} drawn Re -> "
+        f"{counts.tolist()} real scenarios, padded to S_max={s_max}, "
+        f"{SW_NTS} steps, n={n}; setup of the {SW_BUCKETS} buckets "
+        f"{t_setup:.1f} s on {card} (steady residuals {steady})")
+
+    # --- gains and the Newton-Schulz chain ---
+    torch.cuda.reset_peak_memory_stats()
+    info = {}
+    k2_0 = spmm_kernel.launches
+    with recorded_spmm_inputs() as seen, \
+            counted_spmm_launches(riccati, "dre_backward_sweep") as k2_dres, \
+            counted_spmm_launches(param_sweep,
+                                  "build_sweep_steppers_ns_chain") as k2_ch:
+        (cache_stack, ks), t_gains = sync_time(
+            lambda: build_sweep_gains_and_caches(
+                setups, DT, ALPHA, dtype=f32, solver="inverse_ns",
+                dre_solver="matfree", conv=conv, info=info, **SW_GAINS))
+    peak_gains = torch.cuda.max_memory_allocated() / 1e9
+    k2_gains = spmm_kernel.launches - k2_0
+    k2_dre, k2_chain = sum(k2_dres), sum(k2_ch)
+    check(len(k2_dres) == SW_BUCKETS and len(k2_ch) == 1,
+          f"one DRE sweep a bucket and one chain: {len(k2_dres)}, "
+          f"{len(k2_ch)}")
+    res, chain = info["ns_residuals"], info["ns_chain"]
+    check(bool(torch.isfinite(ks).all()), "sweep gains finite")
+    check(max(res) <= SW_CERTIFY, f"NS chain certified: {res}")
+    log(f"     gains and steppers {t_gains:.1f} s on {card} (peak device "
+        f"memory {peak_gains:.2f} GB; spmm_tile {k2_gains} launches: "
+        f"{k2_dre} in the DRE sweeps, {k2_chain} in the chain, "
+        f"{k2_gains - k2_dre - k2_chain} elsewhere); by bucket:")
+    for r, b in enumerate(info["buckets"]):
+        fg = b["fgmres"]
+        log(f"       Re={re_buckets[r]:.1f}: shifts {b['shifts_s']:.2f} s, "
+            f"matfree DRE cache {b['dre_cache_s']:.2f} s, DRE sweep "
+            f"{b['dre_sweep_s']:.2f} s ({fg['solves']} FGMRES solves, worst "
+            f"relres {fg['worst_relres']:.2e}, {fg['above_tol']} above tol "
+            f"{fg['tol']:g}; spmm_tile {k2_dres[r]}); chain "
+            f"{chain['passes'][r]} passes ({chain['extra_passes'][r]} extra), "
+            f"residual {res[r]:.2e} in f64 "
+            f"({chain['residuals_working'][r]:.2e} in f32), "
+            f"{({k: round(v, 3) for k, v in chain['seconds'][r].items()})} s")
+    t_chain = sum(sum(c.values()) for c in chain["seconds"])
+    log(f"     chain {t_chain:.2f} s of the {info['steppers_s']:.2f} s "
+        f"stepper stage (certify_tol {SW_CERTIFY:g}, f64 probes)")
+    k2_abs = check_spmm_inputs("13 gains and chain", seen)
+    del seen
+    torch.cuda.empty_cache()
+
+    # --- f32 matfree gains vs f64 NS gains, first and last bucket ---
+    gdev = {}
+    for r in (0, SW_BUCKETS - 1):
+        np_ops, sys64, _ = setups[r]
+        sig, sseq, iseq = dre_shift_schedule_dae(
+            np_ops["A"], np_ops["M"], np_ops["J"], DT,
+            num_shifts=SW_GAINS["num_shifts"], n_adi=SW_GAINS["n_adi"])
+        cache64, ns_info = build_dre_cache_dae_ns(
+            sys64, DT, sig, certify_tol=C3_CERTIFY_F64)
+        check(all(ns_info["certified"]), f"f64 NS stack bucket {r} certified")
+        _, ks64 = dre_backward_sweep(
+            sys64, cache64, ALPHA, DT, SW_GAINS["nts_gain"], sseq, iseq,
+            n_newton=1, r_max=SW_GAINS["r_max"])
+        gdev[float(re_buckets[r])] = rel_err(ks[r].double(), ks64[0])
+        del cache64, ks64
+    check(max(gdev.values()) <= GAIN_TOL, f"sweep f32 vs f64 gains: {gdev}")
+    log(f"     f32 matfree gains vs f64 NS gains (same shifts): "
+        f"{ {k: f'{v:.2e}' for k, v in gdev.items()} } (tol {GAIN_TOL:g})")
+    torch.cuda.empty_cache()
+
+    # --- the sweep ---
+    ystar = torch.stack([
+        s[1].c @ torch.as_tensor(s[2].restrict(s[0]["vbar_full"])).to(dev)
+        for s in setups]).to(f32)
+    v0_np = np.empty((SW_BUCKETS, s_max, n))
+    mask = np.zeros((SW_BUCKETS, s_max))
+    for r, (np_ops, _, cond) in enumerate(setups):
+        v0_np[r] = cond.restrict(np_ops["vbar_full"])[None]
+        c = int(counts[r])
+        v0_np[r, :c] += 1e-3 * rng.standard_normal((c, n))
+        mask[r, :c] = 1.0
+    v0 = torch.as_tensor(v0_np, dtype=f32).to(dev)
+    mask_d = torch.as_tensor(mask, dtype=f32).to(dev)
+
+    def run(v):
+        return sweep_rollout(sys32, conv, cache_stack, ks, v, ALPHA, DT,
+                             SW_NTS)
+
+    torch.cuda.reset_peak_memory_stats()
+    conv_kernel.launches = 0
+    spmm_kernel.launches = 0
+    with recorded_conv_input() as first_x:
+        (ys, u_sq, v_fin), t_first = sync_time(lambda: run(v0))
+    k1_sweep, k2_sweep = conv_kernel.launches, spmm_kernel.launches
+    peak_sweep = torch.cuda.max_memory_allocated() / 1e9
+    check(k1_sweep == SW_NTS, f"conv_p2 launches in the sweep: {k1_sweep}")
+    check(k2_sweep == 0, f"spmm_tile launches in the sweep: {k2_sweep}")
+    check(tuple(ys.shape) == (SW_BUCKETS, s_max, SW_NTS + 1, sys32.p_out),
+          "sweep ys shape")
+    check(tuple(u_sq.shape) == (SW_BUCKETS, s_max, SW_NTS), "sweep u_sq shape")
+    for name, x in (("ys", ys), ("u_sq", u_sq), ("v_final", v_fin)):
+        check(bool(torch.isfinite(x).all()), f"sweep {name} finite")
+    warm, prints = [], []
+    for _ in range(SW_WARM):
+        (ys_w, _, _), t = sync_time(lambda: run(v0))
+        warm.append(t)
+        prints.append(fingerprint(ys_w.cpu().numpy()))
+        del ys_w
+    check(len(set(prints)) == 1, f"warm sweeps bit-equal: {prints}")
+    t_warm = statistics.median(warm)
+    spread = (max(warm) - min(warm)) / t_warm
+    log(f"     sweep {SW_BUCKETS} x {s_max} x {SW_NTS} on {card}: first "
+        f"{t_first:.3f} s, warm {[round(t, 4) for t in warm]} s -> median "
+        f"{t_warm:.4f} s (spread {spread:.1%}), {real / t_warm:.0f} real "
+        f"solves/s, {padded / t_warm:.0f} padded solves/s "
+        f"({t_warm / SW_NTS * 1e3:.2f} ms a step); conv_p2 {k1_sweep} "
+        f"launches, spmm_tile {k2_sweep}; peak device memory {peak_sweep:.2f} "
+        f"GB; warm ys fingerprints {prints} (bit-equal)")
+
+    # --- K1 at the sweep's own first-step input ---
+    x1 = first_x[0]
+    b = x1.shape[1]
+    out = conv_kernel.conv_inner(x1, conv)
+    ref = ConvKernel.conv_inner_batch_t(conv, x1)
+    k1_err, k1_abs = rel_err(out, ref), float((out - ref).abs().max())
+    check(k1_err <= KERNEL_TOL, f"conv_p2 at the sweep's B={b}: {k1_err:.2e}")
+    check(torch.equal(out, conv_kernel.conv_inner(x1, conv)),
+          f"conv_p2 repeats bit for bit at B={b}")
+    k_ms = event_ms(lambda: conv_kernel.conv_inner(x1, conv), 20)
+    p_ms = event_ms(lambda: ConvKernel.conv_inner_batch_t(conv, x1), 3)
+    nt, plan = conv.tri_dofs.shape[0], conv.plan
+    plan_bytes = sum(
+        t.numel() * t.element_size()
+        for t in (plan.vsrc, plan.vdir, plan.pelem, plan.pnd, plan.psptr,
+                  plan.pslot, plan.pdst, plan.bdst, plan.bsrc))
+    bnd = bound_ms(4 * (2 * n * b + nt * 432) + plan_bytes, 1008 * nt * b,
+                   "float32")
+    k1_rec = {"B": b, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
+              "bound_by": bnd[1], "max_abs_err": k1_abs}
+    log(f"     conv_p2 on the sweep's first-step X (n={n}, B={b}): rel err "
+        f"{k1_err:.2e} (abs {k1_abs:.2e}, tol {KERNEL_TOL:g}) vs the plain "
+        f"slot sums, repeats bit for bit; {k_ms:.3f} ms/call (events), plain "
+        f"{p_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}) = "
+        f"{bnd[0] / k_ms:.0%} of the kernel's time")
+    del first_x, x1, out, ref
+
+    # --- statistics, and the same with NaN padded rows ---
+    stats = masked_sweep_stats(ys, u_sq, ALPHA, DT, ystar, mask_d)
+    check(np.array_equal(stats["scenarios"].cpu().numpy(), counts),
+          f"sweep scenario counts {stats['scenarios'].tolist()}")
+    for key, x in stats.items():
+        check(bool(torch.isfinite(x).all()), f"sweep statistic {key} finite")
+    v0_nan = v0.clone()
+    for r, c in enumerate(counts):
+        v0_nan[r, int(c):] = float("nan")
+    ys_n, u_n, _ = run(v0_nan)
+    stats_n = masked_sweep_stats(ys_n, u_n, ALPHA, DT, ystar, mask_d)
+    same = {k: torch.equal(stats[k], stats_n[k]) for k in stats}
+    check(all(same.values()), f"NaN padding leaves the statistics: {same}")
+    del v0_nan, ys_n, u_n
+    with open(SW_RECORD) as fh:
+        rec = json.load(fh)
+    log(f"     statistics (masked, y* = each bucket's steady output), "
+        f"identical with NaN padded rows; beside {SW_RECORD} (the JAX "
+        f"package on a {rec['device']}, not this port):")
+    for r in range(SW_BUCKETS):
+        log(f"       Re={re_buckets[r]:.1f}: {int(counts[r])} scenarios, "
+            f"tracking cost {float(stats['mean_cost'][r]):.4e} "
+            f"({rec['tracking_cost_per_bucket'][r]:.4e}), terminal err "
+            f"{float(stats['tracking_err_T'][r]):.4e} "
+            f"({rec['terminal_err_per_bucket'][r]:.4e}), max |y| "
+            f"{float(stats['max_abs_y'][r]):.4e}")
+
+    # --- f64 check on the host-LU stepper tier ---
+    t0 = time.perf_counter()
+    rows = [0, SW_BUCKETS - 1]
+    stack64 = NSEStepCache.stack([
+        build_nse_stepper(setups[r][0], setups[r][2], DT, device=dev,
+                          dtype=f64, solver="lu") for r in rows])
+    conv64 = ConvKernel.build(setups[0][0]["full"], setups[0][2], device=dev,
+                              dtype=f64)
+    ys64, _, _ = nse_sweep_outputs(
+        setups[0][1], conv64, stack64, ks[rows].double(),
+        torch.as_tensor(v0_np[rows, :SW_REF_S]).to(dev), ALPHA, DT, SW_NTS)
+    ydev = rel_err(ys[rows, :SW_REF_S].double(), ys64)
+    check(ydev <= ROLLOUT_TOL, f"sweep f32 vs f64 outputs: {ydev:.2e}")
+    log(f"     f32 sweep vs f64 on the lu tier (buckets {rows}, "
+        f"{SW_REF_S} real scenarios each, {SW_NTS} steps, "
+        f"{time.perf_counter() - t0:.1f} s): ys {ydev:.2e} "
+        f"(tol {ROLLOUT_TOL:g})")
+    # the same scenarios in f32 on the host-built f32 steppers instead of
+    # the chain's inverses: what f32 leaves without the chain
+    v0_rows = v0[rows, :SW_REF_S].contiguous()
+    for tier in ("lu", "inverse"):
+        stack32 = NSEStepCache.stack([
+            build_nse_stepper(setups[r][0], setups[r][2], DT, device=dev,
+                              dtype=f32, solver=tier) for r in rows])
+        ys32, _, _ = nse_sweep_outputs(sys32, conv, stack32, ks[rows],
+                                       v0_rows, ALPHA, DT, SW_NTS)
+        tdev = rel_err(ys32.double(), ys64)
+        log(f"     the same scenarios in f32 on f32 {tier!r} steppers (host "
+            f"f64 factor cast) vs f64: ys {tdev:.2e}")
+        del stack32, ys32
+    del stack64, conv64, ys64, v0_rows
+
+    # --- where a step's time goes ---
+    split, wall, _ = kernel_split(lambda: run(v0))
+    busy = sum(us for _, us in split.values())
+
+    def share(*words):
+        hit = [(c, us) for name, (c, us) in split.items()
+               if any(w in name.lower() for w in words)]
+        return sum(c for c, _ in hit), sum(us for _, us in hit)
+
+    gemm, k1p = share("gemm", "sm80", "sm90", "cutlass"), share("conv_p2")
+    copies = share("copy")
+    log(f"     profiler, one warm sweep ({SW_NTS} steps, {wall:.3f} s wall, "
+        f"device busy {busy / 1e6:.3f} s = {busy / 1e6 / wall:.1%}): GEMMs "
+        f"{gemm[1] / 1e6 / wall:.1%}, conv_p2 {k1p[1] / 1e6 / wall:.1%}, "
+        f"{copies[0]} copy kernels ({copies[0] / SW_NTS:.3f} a step); per "
+        f"step: calls, us, share of the wall")
+    for name, (calls, us) in sorted(split.items(), key=lambda r: -r[1][1]):
+        log(f"      {calls / SW_NTS:7.3f} x {us / calls:9.2f} us "
+            f"{us / 1e6 / wall:6.1%}  {name[:110]}")
+    check(share("conv_p2_patch")[0] == SW_NTS,
+          f"profiled conv_p2 kernels: {share('conv_p2_patch')[0]}")
+    # the state is never copied: the few copies are the sweep's set-up
+    # and its outputs' final layout, none a step
+    check(copies[0] < SW_NTS // 10, f"copy kernels in the sweep: {copies[0]}")
+    del ys, u_sq, v_fin, cache_stack, ks, v0, setups, conv
+    torch.cuda.empty_cache()
+    log(f"[13] phase 13 wall {time.perf_counter() - t_phase:.1f} s on {card}")
+    key = f"13 sweep ({SW_BUCKETS} x {s_max} x {SW_NTS}, f32)"
+    k1 = {key: k1_sweep}
+    k2 = {f"13 sweep gains (matfree DRE, {SW_BUCKETS} buckets)": k2_dre,
+          f"13 sweep NS chain ({SW_BUCKETS} buckets)": k2_chain}
+    return k1, k2, k1_rec, k2_abs
+
+
 def main() -> None:
     import torch
 
@@ -1528,6 +1897,13 @@ def main() -> None:
     log(f"[11] phase 11 wall {t11 + t_c:.1f} s ((a), (b) and (d) "
         f"{t11:.1f} s, (c) {t_c:.1f} s)")
 
+    # --- 13. the config-5 parameter sweep -------------------------------
+    k1_sw, k2_sw, k1_sweep, k2_sw_err = sweep_phase(dev, card)
+    k1_paths.update(k1_sw)
+    k2_paths.update(k2_sw)
+    kernel_err = max(kernel_err, k1_sweep.pop("max_abs_err"))
+    spmm_err = max(spmm_err, k2_sw_err)
+
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         {
@@ -1546,6 +1922,7 @@ def main() -> None:
             "bound_by": conv_bound[1],
             "library_ms": None,
             "at": f"B={S_BATCH}, n={n}, nt={nt}, float32",
+            "sweep": k1_sweep,
         },
         {
             "name": "spmm_tile",

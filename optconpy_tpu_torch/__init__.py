@@ -26,7 +26,9 @@ Layer map (mirrors optconpy_tpu):
                the DRE residual check (host)
     control/   costate caches and the feedforward sweep
     mpc/       closed-loop rollouts: LTI, IMEX step tiers (dense and
-               matrix-free), fused
+               matrix-free), fused, receding horizon, the sweep's
+               bucket loop and its Newton-Schulz stepper chain
+    parallel/  the parameter sweep over Re buckets (config 5)
     models/    driven-cavity and cylinder-wake setups
     utils/     config and its hash, checkpoint cache, metrics, VTK,
                runtime precision policy

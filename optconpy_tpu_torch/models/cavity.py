@@ -23,8 +23,9 @@ CONTROL_BOXES = ((0.1, 0.4, 0.0, 0.2), (0.6, 0.9, 0.0, 0.2))
 OBS_BOX = (0.25, 0.75, 0.4, 0.6)
 
 
-def cavity_stokes_setup(nx: int, *, device, dtype=None):
-    """Assemble the condensed Stokes cavity control problem.
+def cavity_stokes_setup(nx: int, *, device, dtype=None, nu: float = NU):
+    """Assemble the condensed Stokes cavity control problem at viscosity
+    nu (a viscosity sweep gives the buckets of a parameter sweep).
 
     Returns (np_ops, dae_system, cond): np_ops holds the scipy inner
     matrices {M, A, J, B, C, fv, fp}; dae_system lives on `device` in
@@ -32,7 +33,7 @@ def cavity_stokes_setup(nx: int, *, device, dtype=None):
     """
     mesh = unit_square_mesh(nx)
     space = TaylorHoodSpace.build(mesh)
-    ops = assemble_stokes(space, nu=NU)
+    ops = assemble_stokes(space, nu=nu)
     ns = space.n_scalar
     coords = space.dof_coords()  # (ns, 2)
 

@@ -9,7 +9,10 @@ from .nse_rollout import (
     build_nse_fused,
     build_nse_stepper,
     build_nse_stepper_matfree,
+    build_sweep_steppers_ns_chain,
+    nse_closed_loop_outputs,
     nse_closed_loop_rollout,
+    nse_sweep_outputs,
 )
 from .receding import RHConfig, receding_horizon_mpc
 from .rollout import (
@@ -32,7 +35,10 @@ __all__ = [
     "build_nse_stepper_matfree",
     "build_step_cache",
     "build_step_cache_dae",
+    "build_sweep_steppers_ns_chain",
     "closed_loop_rollout",
+    "nse_closed_loop_outputs",
     "nse_closed_loop_rollout",
+    "nse_sweep_outputs",
     "receding_horizon_mpc",
 ]

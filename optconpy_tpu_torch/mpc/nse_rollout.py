@@ -28,15 +28,31 @@ Step (fv, fp are the BC condensation rhs; L1i is the implicit
 convection, zero for the explicit scheme):
   [[M/dt - A_stokes + L1i, J^T], [J, 0]] [v+; p]
       = [M v_k/dt - (N(v_k)v_k - L1i v_k) + B u_k - fv; fp]
+
+The parameter sweep (config 5) runs R buckets of S scenarios, each
+bucket with its own linearization, gain and step operators, in one time
+loop that keeps no state trajectory (nse_sweep_outputs); its Oseen
+steppers come from an inverse of the first bucket carried across the
+buckets by certified Newton-Schulz passes
+(build_sweep_steppers_ns_chain).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import math
+import time
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
 
 from ..ops.spmm_kernel import pack_spmm, spmm
+
+# The Newton-Schulz stepper chain (build_sweep_steppers_ns_chain): the
+# reference's passes (seed_passes for bucket 0, ns_passes for each later
+# bucket) and certify_tol.
+CHAIN_SEED_PASSES = 2
+CHAIN_PASSES = 4
+CHAIN_CERTIFY_TOL = 1e-4
 
 
 @dataclass(frozen=True)
@@ -59,6 +75,25 @@ class NSEStepCache:
     fp: torch.Tensor
     vbar: torch.Tensor
     rhs_half: torch.Tensor | None = None
+
+    @staticmethod
+    def stack(caches) -> "NSEStepCache":
+        """The caches of R buckets (one problem geometry) as one
+        NSEStepCache whose tensors carry a leading R axis, its lu a
+        batched SaddleLU or SaddleInverse (solvers/saddle.py stack): the
+        reference's jax.tree.map(jnp.stack) over the per-bucket caches
+        (parallel/param_sweep.py build_sweep_gains_and_caches)."""
+        def field_stack(name):
+            vals = [getattr(c, name) for c in caches]
+            if vals[0] is None:
+                return None
+            if isinstance(vals[0], torch.Tensor):
+                return torch.stack(vals)
+            return type(vals[0]).stack(vals)
+
+        return NSEStepCache(**{
+            f.name: field_stack(f.name) for f in fields(NSEStepCache)
+        })
 
 
 def _l1_inner(np_ops, cond, scheme):
@@ -486,3 +521,261 @@ def batched_nse_closed_loop(
         feedback,
     )
     return vs.permute(2, 0, 1), us.permute(2, 0, 1), ys.permute(2, 0, 1)
+
+
+def nse_sweep_outputs(
+    sys,
+    conv,
+    cache_stack: NSEStepCache,
+    ks: torch.Tensor,
+    v0: torch.Tensor,
+    alpha: float,
+    dt: float,
+    nts: int,
+    feedback: str = "implicit",
+):
+    """Closed loops of R buckets x S scenarios in one time loop, each
+    bucket with its own step operators and constant gain; keeps no state
+    trajectory. Returns (ys (R, S, nts+1, p), u_sq (R, S, nts) the
+    squared control norm of each step, v_final (R, S, n)).
+
+    cache_stack: NSEStepCache.stack of the buckets' caches (one
+    geometry); ks (R, m, n); v0 (R, S, n). sys supplies the shared mass,
+    B and C; alpha is unused (no feedforward), as in the reference.
+
+    The state is kept as one (n, R*S) matrix: the convection takes it
+    whole, batch last (conv.conv_inner_batch_t), and each bucket's
+    products read and write its (R, n, S) view, whose matrices are
+    column blocks of it, so no step copies the state. The step is
+    rearranged by linearity into two (n, n) products a bucket, with
+    W = S_vv the velocity block of the saddle inverse and
+    P = M/dt + L1 (Euler) or M/dt + rhs_half (CNAB2):
+        x0 = W (P v - N(v)v) + d,  d = W (-fv [+ B K vbar]) + S_vp fp,
+    in CNAB2 with 1.5 q_k - 0.5 q_{k-1} (q = N(v)v - L1 v) in place of
+    N(v)v - L1 v and one more product; explicit feedback adds G u_k
+    (G = W B), implicit feedback corrects x0 to
+    x0 - G (I + K G)^-1 K x0, the m x m inverse formed once a bucket. The
+    reference's AB2 seed q_{-1} = q_0 equals the first step's q, so the
+    convection runs once a step.
+    """
+    if feedback not in ("explicit", "implicit"):
+        raise ValueError(f"unknown feedback mode: {feedback}")
+    r_b, s_b, n = v0.shape
+    lu = cache_stack.lu
+    cn = cache_stack.rhs_half is not None
+    implicit = feedback == "implicit"
+    b = sys.b
+
+    # per-bucket operators, formed once
+    w = lu.velocity_block()  # (R, n, n)
+    gmat = lu.apply(b.expand(r_b, n, sys.m_in))  # (R, n, m)
+    d = lu.apply(b.new_zeros((r_b, n, 1)), cache_stack.fp[..., None])
+    c = -cache_stack.fv[..., None]  # (R, n, 1)
+    vbar = cache_stack.vbar.T[:, :, None]  # (n, R, 1)
+    if implicit:
+        c = c + b @ (ks @ cache_stack.vbar[..., None])  # + B (K vbar)
+        # G (I + K G)^-1, the m x m system inverted once a bucket (f64)
+        eye_m = torch.eye(sys.m_in, dtype=b.dtype, device=b.device)
+        g_smw = gmat @ torch.linalg.inv((eye_m + ks @ gmat).double()).to(
+            b.dtype)
+    d = torch.baddbmm(d, w, c)
+    pmat = sys.mass.todense() / dt + (
+        cache_stack.rhs_half if cn else cache_stack.l1_imp
+    )
+
+    def bview(x):  # (n, R*S) -> its (R, n, S) view
+        return x.view(n, r_b, s_b).permute(1, 0, 2)
+
+    def controls(x):  # u = -K (x - vbar), bucket by bucket: (R, m, S)
+        dx = x.view(n, r_b, s_b) - vbar
+        return torch.bmm(ks, dx.permute(1, 0, 2)).neg_()
+
+    v = v0.permute(2, 0, 1).contiguous().view(n, r_b * s_b)
+    ys = v.new_empty((nts + 1, sys.p_out, r_b * s_b))
+    u_sq = v.new_empty((nts, r_b, s_b))
+    torch.matmul(sys.c, v, out=ys[0])
+    q_prev = None
+    for k in range(nts):
+        vb = bview(v)
+        if not implicit:
+            u = controls(v)
+        rhs = conv.conv_inner_batch_t(v)  # N(v)v
+        if cn:
+            q = rhs
+            bview(q).baddbmm_(cache_stack.l1_imp, vb, alpha=-1.0)
+            rhs = torch.empty_like(v)
+            torch.bmm(pmat, vb, out=bview(rhs))
+            rhs.add_(q, alpha=-1.5).add_(
+                q if q_prev is None else q_prev, alpha=0.5)
+            q_prev = q
+        else:
+            bview(rhs).baddbmm_(pmat, vb, beta=-1.0)  # P v - N(v)v
+        x = torch.empty_like(v)
+        xb = bview(x)
+        torch.bmm(w, bview(rhs), out=xb)
+        xb += d
+        if implicit:
+            xb.baddbmm_(g_smw, torch.bmm(ks, xb), alpha=-1.0)
+            u = controls(x)
+        else:
+            xb.baddbmm_(gmat, u)
+        torch.sum(u * u, dim=1, out=u_sq[k])
+        torch.matmul(sys.c, x, out=ys[k + 1])
+        v = x
+    ys = ys.view(nts + 1, sys.p_out, r_b, s_b).permute(2, 3, 0, 1)
+    return (ys.contiguous(), u_sq.permute(1, 2, 0).contiguous(),
+            v.view(n, r_b, s_b).permute(1, 2, 0).contiguous())
+
+
+def nse_closed_loop_outputs(
+    sys,
+    conv,
+    cache: NSEStepCache,
+    k_gain: torch.Tensor,
+    v0: torch.Tensor,
+    alpha: float,
+    dt: float,
+    nts: int,
+    feedback: str = "implicit",
+):
+    """Memory-lean closed loop of one scenario under the constant gain
+    k_gain (m, n): (ys (nts+1, p), u_sq (nts,), v_final (n,)), no state
+    trajectory kept. The sweep's loop (nse_sweep_outputs) at one bucket
+    of one scenario; the cache's scheme (CNAB2 when rhs_half is present)
+    and both feedback modes as there."""
+    ys, u_sq, v_final = nse_sweep_outputs(
+        sys, conv, NSEStepCache.stack([cache]), k_gain[None],
+        v0[None, None], alpha, dt, nts, feedback,
+    )
+    return ys[0, 0], u_sq[0, 0], v_final[0, 0]
+
+
+def build_sweep_steppers_ns_chain(
+    setups: list,
+    dt: float,
+    conv,
+    *,
+    dtype=torch.float32,
+):
+    """Oseen steppers (scheme 'oseen') of the buckets of a parameter
+    sweep (shared geometry), their explicit saddle inverses built on the
+    device as a Newton-Schulz chain: bucket 0's inverse is the float64
+    inverse of its step matrix, cast to dtype and refined by
+    CHAIN_SEED_PASSES passes; each later bucket starts from the previous
+    bucket's inverse and takes CHAIN_PASSES passes (adjacent Re buckets
+    are close: the passes converge quadratically from the previous
+    inverse).
+
+    The step matrix [[M/dt - A_stokes + L1(vbar_r), J^T], [J, 0]] is the
+    pencil [[At + s M, J^T], [J, 0]] of solvers/ns_inverse.py with
+    At = L1(vbar_r) - A_stokes and s = 1/dt, so a pass is
+    ns_inverse._ns_pass_saddle (the sparse products on the SpMM kernel,
+    one dense GEMM). Every bucket is packed in the RCM ordering of bucket
+    0, so each inverse seeds the next in the same ordering whatever
+    sparsity pattern scipy gives a bucket's L1.
+
+    Each bucket is certified as the Newton-Schulz stacks are
+    (ns_inverse.certified_passes: the probe evaluated in float64 for a
+    float32 chain, further passes while the residual is above
+    CHAIN_CERTIFY_TOL and below 1, up to ns_inverse.MAX_CERTIFY_PASSES);
+    a bucket that still misses, or whose residual is not finite or >= 1,
+    raises RuntimeError.
+
+    setups: (np_ops, sys, cond) per bucket (models/*; np_ops carries
+    vbar_full), on one device; conv: a ConvKernel on the shared geometry
+    (the device re-linearization L1(vbar_r) of each stepper). Returns
+    (steppers, residuals, info): NSEStepCache per bucket (SaddleInverse
+    in the original dof order), the float64-evaluated residuals, and
+    info with each bucket's passes, extra_passes, residuals_working (the
+    probe in dtype) and seconds (pack, passes with their probes,
+    stepper).
+    """
+    import scipy.sparse as sp
+
+    from ..solvers.ns_inverse import (
+        SEED,
+        SaddleOpsPack,
+        certified_passes,
+        ordered_operators,
+        repack_at,
+    )
+    from ..solvers.saddle import SaddleInverse
+
+    np_ops0, sys0, cond0 = setups[0]
+    device = sys0.b.device
+    s = 1.0 / dt
+
+    def pencil_at(np_ops, cond):
+        a_st = sp.csr_matrix(cond.mat_inner(np_ops["full"]["A"]))
+        return (_l1_inner(np_ops, cond, "oseen") - a_st).tocsr()
+
+    at_r, m_r, j_r, perm, p_perm = ordered_operators(
+        pencil_at(np_ops0, cond0), np_ops0["M"], np_ops0["J"])
+    n, n_p = m_r.shape[0], j_r.shape[0]
+    iorder = torch.as_tensor(
+        np.argsort(np.concatenate([perm, n + p_perm]))).to(device)
+    pack = SaddleOpsPack.pack(at_r, m_r, j_r, device=device, dtype=dtype)
+    pack64 = None
+    if dtype != torch.float64:
+        pack64 = SaddleOpsPack.pack(at_r, m_r, j_r, device=device,
+                                    dtype=torch.float64)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    steppers, residuals = [], []
+    info = {"passes": [], "extra_passes": [], "residuals_working": [],
+            "seconds": []}
+    x = None
+    for r, (np_ops, _sys, cond) in enumerate(setups):
+        t0 = time.perf_counter()
+        if r == 0:
+            big = sp.bmat([[at_r + s * m_r, j_r.T], [j_r, None]])
+            big = torch.as_tensor(big.toarray()).to(device)
+            # float64 on the device; its layout may be column-major
+            x = torch.linalg.inv(big).to(dtype).contiguous()
+            del big
+            passes = CHAIN_SEED_PASSES
+        else:
+            at_r = sp.csr_matrix(pencil_at(np_ops, cond)[perm][:, perm])
+            pack, pack64 = repack_at(pack, pack64, at_r)
+            passes = CHAIN_PASSES
+        sync()
+        t1 = time.perf_counter()
+        x, res, res_w, extra = certified_passes(
+            pack, pack64, s, x, gen, passes, CHAIN_CERTIFY_TOL)
+        if not (math.isfinite(res) and res <= CHAIN_CERTIFY_TOL):
+            raise RuntimeError(
+                f"Newton-Schulz chain: bucket {r} did not certify, residual "
+                f"{res:.3e} (float64 probe) against {CHAIN_CERTIFY_TOL:g} "
+                f"after {passes + extra} passes"
+            )
+        t2 = time.perf_counter()
+        l1 = conv.linearized_dense(
+            torch.as_tensor(np_ops["vbar_full"]).to(conv.t0),
+            include_l2=False,
+        )[conv.free][:, conv.free]
+        full = np_ops["full"]
+        steppers.append(NSEStepCache(
+            lu=SaddleInverse(x[iorder[:, None], iorder], n),
+            l1_imp=l1.to(dtype),
+            fv=dev(cond.mat_bc_rhs(full["A"])),
+            fp=dev(cond.jmat_bc_rhs(full["J"])),
+            vbar=dev(cond.restrict(np_ops["vbar_full"])),
+        ))
+        del l1
+        sync()
+        residuals.append(res)
+        info["passes"].append(passes + extra)
+        info["extra_passes"].append(extra)
+        info["residuals_working"].append(res_w)
+        info["seconds"].append({
+            "pack": t1 - t0, "passes": t2 - t1,
+            "stepper": time.perf_counter() - t2,
+        })
+    return steppers, residuals, info

@@ -56,16 +56,21 @@ def dre_shift_schedule(
 
 def dre_shift_schedule_dae(
     a_np, m_np, j_np, dt: float, num_shifts: int = 12, n_adi: int = 24,
+    interval: tuple | None = None,
 ):
     """Host shift setup for constrained systems: projected spectral
     interval of (A, M)|ker J, time-shifted analytically.
 
     Returns (sig, sigma_seq, idx_seq): the distinct Wachspress shifts
     and the cycled per-iteration schedule (values + cache indices).
-    n <= 1200 uses the exact dense projected interval and larger n the
-    cheap (0, ARPACK a_max) one (shifts.spectral_interval_dae_cheap).
+    interval: a precomputed (a_min, a_max) of (A, M) that replaces the
+    spectral one. Without it, n <= 1200 uses the exact dense projected
+    interval and larger n the cheap (0, ARPACK a_max) one
+    (shifts.spectral_interval_dae_cheap).
     """
-    if a_np.shape[0] <= 1200:
+    if interval is not None:
+        a_min, a_max = interval
+    elif a_np.shape[0] <= 1200:
         a_min, a_max = shiftmod.spectral_interval_dae(a_np, m_np, j_np)
     else:
         a_min, a_max = shiftmod.spectral_interval_dae_cheap(a_np, m_np)

@@ -31,6 +31,7 @@ same probe and rebuilt from the ladder where it misses.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from dataclasses import dataclass
@@ -172,6 +173,37 @@ def _certify_probe(pack, pack64, s: float, x, gen) -> tuple[float, float]:
     return res, _max_rel_norm(v64 - _apply_big(pack64, s, xv), v64)
 
 
+def certified_passes(pack, pack64, s: float, x, gen, passes: int,
+                     certify_tol: float):
+    """The certification policy of every Newton-Schulz inverse: passes
+    passes at shift s, the probe (_certify_probe), then further passes
+    while the float64 residual is above certify_tol and below 1, up to
+    MAX_CERTIFY_PASSES. Returns (x, res (float64), res_w (x's dtype),
+    extra passes); the caller decides what a miss means."""
+    for _ in range(passes):
+        x = _ns_pass_saddle(pack, s, x)
+    res_w, res = _certify_probe(pack, pack64, s, x, gen)
+    extra = 0
+    while certify_tol < res < 1.0 and extra < MAX_CERTIFY_PASSES:
+        x = _ns_pass_saddle(pack, s, x)
+        extra += 1
+        res_w, res = _certify_probe(pack, pack64, s, x, gen)
+    return x, res, res_w, extra
+
+
+def repack_at(pack, pack64, at_r):
+    """(pack, pack64) with A^T replaced by at_r (already in the packs'
+    ordering; same orderings and M, J)."""
+    pack = dataclasses.replace(
+        pack, at=pack_spmm(at_r, device=pack.m_diag.device,
+                           dtype=pack.m_diag.dtype))
+    if pack64 is not None:
+        pack64 = dataclasses.replace(
+            pack64, at=pack_spmm(at_r, device=pack64.m_diag.device,
+                                 dtype=torch.float64))
+    return pack, pack64
+
+
 def _power_iteration(op, v) -> float:
     """lambda_max of a linear map by POWER_ITERS power steps."""
     lam = v.new_ones(())
@@ -294,16 +326,10 @@ def _ladder(pack: SaddleOpsPack, pack64, sig_np, certify_tol: float, gen,
             ns_passes += PASSES_PER_RUNG
             n_rungs += 1
             s_cur = s_r
-        for _ in range(EXTRA_PASSES_AT_SHIFT):
-            x = _ns_pass_saddle(pack, s_target, x)
-        ns_passes += EXTRA_PASSES_AT_SHIFT
-        res_w, res = _certify_probe(pack, pack64, s_target, x, gen)
-        extra = 0
-        while res > certify_tol and extra < MAX_CERTIFY_PASSES:
-            x = _ns_pass_saddle(pack, s_target, x)
-            extra += 1
-            res_w, res = _certify_probe(pack, pack64, s_target, x, gen)
-        ns_passes += extra
+        x, res, res_w, extra = certified_passes(
+            pack, pack64, s_target, x, gen, EXTRA_PASSES_AT_SHIFT,
+            certify_tol)
+        ns_passes += EXTRA_PASSES_AT_SHIFT + extra
         if not math.isfinite(res) or res >= 1.0:
             raise RuntimeError(
                 f"Newton-Schulz diverged at shift {s_target:.4e}: "
@@ -465,32 +491,17 @@ class NSShiftStack:
     def refresh(self, at_sp_new) -> "NSShiftStack":
         """Certified value-refresh for a re-linearized A^T (same pattern
         and orderings; class docstring). Returns self (mutated)."""
-        import dataclasses
-
         import scipy.sparse as sp
 
         at_r = sp.csr_matrix(at_sp_new)[self.perm][:, self.perm].tocsr()
-        dtype, device = self.vv.dtype, self.vv.device
-        self.pack = dataclasses.replace(
-            self.pack, at=pack_spmm(at_r, device=device, dtype=dtype)
-        )
-        if self.pack64 is not None:
-            self.pack64 = dataclasses.replace(
-                self.pack64,
-                at=pack_spmm(at_r, device=device, dtype=torch.float64),
-            )
+        device = self.vv.device
+        self.pack, self.pack64 = repack_at(self.pack, self.pack64, at_r)
         gen = torch.Generator(device=device).manual_seed(REFRESH_SEED)
         missed = []
         for i, s in enumerate(self.sig.tolist()):
-            x = self.full[i]
-            for _ in range(REFRESH_PASSES):
-                x = _ns_pass_saddle(self.pack, s, x)
-            res_w, res = _certify_probe(self.pack, self.pack64, s, x, gen)
-            extra = 0
-            while self.certify_tol < res < 1.0 and extra < MAX_CERTIFY_PASSES:
-                x = _ns_pass_saddle(self.pack, s, x)
-                extra += 1
-                res_w, res = _certify_probe(self.pack, self.pack64, s, x, gen)
+            x, res, res_w, extra = certified_passes(
+                self.pack, self.pack64, s, self.full[i], gen, REFRESH_PASSES,
+                self.certify_tol)
             if res <= self.certify_tol:  # False for NaN
                 self._store(i, x, res, res_w, extra)
             else:

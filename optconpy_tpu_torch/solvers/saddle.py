@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
@@ -67,26 +67,39 @@ def _stack_rhs(rhs_v, rhs_p):
 
 def _pad_pressure(rv, rp, n_p):
     if rp is None:
-        rp = rv.new_zeros((n_p, rv.shape[1]))
-    return torch.cat([rv, rp])
+        rp = rv.new_zeros(rv.shape[:-2] + (n_p, rv.shape[-1]))
+    return torch.cat([rv, rp], dim=-2)
 
 
 class _SaddleApply:
     """apply/apply_full over a subclass's `_solve(rhs_v, rhs_p)`, which
-    returns the stacked (velocity; pressure) solution columns."""
+    returns the stacked (velocity; pressure) solution columns. A solver
+    whose tensors carry leading batch axes (stack) solves a batch of
+    saddle systems, one per leading index, against rhs with the same
+    leading axes."""
 
     def apply(self, rhs_v: torch.Tensor, rhs_p: torch.Tensor | None = None):
-        """Solve; rhs_v (n,) or (n, k), rhs_p None (zeros) or (n_p,)/(n_p, k).
-        Returns the velocity block only."""
+        """Solve; rhs_v (n,) or (..., n, k), rhs_p None (zeros) or
+        (n_p,)/(..., n_p, k). Returns the velocity block only."""
         sol, squeeze = self._solve(rhs_v, rhs_p)
-        v = sol[: self.n]
-        return v[:, 0] if squeeze else v
+        v = sol[..., : self.n, :]
+        return v[..., 0] if squeeze else v
 
     def apply_full(self, rhs_v: torch.Tensor, rhs_p: torch.Tensor):
         """Solve returning (velocity, pressure)."""
         sol, squeeze = self._solve(rhs_v, rhs_p)
-        v, p = sol[: self.n], sol[self.n:]
-        return (v[:, 0], p[:, 0]) if squeeze else (v, p)
+        v, p = sol[..., : self.n, :], sol[..., self.n:, :]
+        return (v[..., 0], p[..., 0]) if squeeze else (v, p)
+
+    @classmethod
+    def stack(cls, solvers):
+        """Solvers of one size as one whose tensors carry a leading axis,
+        one index per solver."""
+        return cls(**{
+            f.name: (solvers[0].n if f.name == "n" else torch.stack(
+                [getattr(s, f.name) for s in solvers]))
+            for f in fields(cls)
+        })
 
 
 @dataclass(frozen=True)
@@ -113,8 +126,14 @@ class SaddleLU(_SaddleApply):
 
     def _solve(self, rhs_v, rhs_p):
         rv, rp, squeeze = _stack_rhs(rhs_v, rhs_p)
-        big = _pad_pressure(rv, rp, self.lu.shape[0] - self.n)
+        big = _pad_pressure(rv, rp, self.lu.shape[-1] - self.n)
         return lu_apply(self.lu, self.piv, big), squeeze
+
+    def velocity_block(self) -> torch.Tensor:
+        """(..., n, n) velocity block of the inverse, by solving against
+        the identity with a zero pressure rhs."""
+        eye = torch.eye(self.n, dtype=self.lu.dtype, device=self.lu.device)
+        return self.apply(eye.expand(self.lu.shape[:-2] + (self.n, self.n)))
 
 
 @dataclass(frozen=True)
@@ -135,8 +154,12 @@ class SaddleInverse(_SaddleApply):
 
     def _solve(self, rhs_v, rhs_p):
         rv, rp, squeeze = _stack_rhs(rhs_v, rhs_p)
-        big = _pad_pressure(rv, rp, self.inv.shape[0] - self.n)
+        big = _pad_pressure(rv, rp, self.inv.shape[-1] - self.n)
         return self.inv @ big, squeeze
+
+    def velocity_block(self) -> torch.Tensor:
+        """(..., n, n) velocity block of the inverse: a view, no copy."""
+        return self.inv[..., : self.n, : self.n]
 
 
 def _shifted_saddles(at_dense, m_dense, j_dense, shifts):

@@ -30,6 +30,10 @@ Receding-horizon MPC: the dense re-linearization repeats bit for bit on
 the card and matches the CPU (1e-12); NSShiftStack's build and refresh
 on the card match the CPU (1e-10); the dense_ns macro loop on the
 cavity, card against CPU (1e-8).
+
+The parameter sweep: the cavity sweep on the 'lu' steppers, card
+against CPU (1e-10); the f32 Newton-Schulz stepper chain certified on
+the card; the convection kernel on the sweep's flattened state.
 """
 import dataclasses
 from dataclasses import replace
@@ -636,3 +640,80 @@ def test_dense_ns_receding_on_card_matches_cpu(gpu):
     for key in ("vs", "us", "ks"):
         assert _rel(outs[gpu][key].cpu(), outs[CPU][key]) <= 1e-8, key
     assert all(r["ns_refresh_rebuilds"] == 0 for r in outs[gpu]["macros"])
+
+
+def _sweep_cavities(nus, device):
+    """The cavity (nx=5) about its steady flow at each viscosity, on
+    `device` (tests/test_param_sweep.py's sweep buckets)."""
+    from optconpy_tpu_torch.solvers.steady import solve_steady_nse_host
+
+    setups = []
+    for nu in nus:
+        ops, sys, cond = cavity_stokes_setup(nx=5, device=device, nu=nu)
+        ops["vbar_full"], _ = solve_steady_nse_host(ops["full"], cond)
+        setups.append((ops, sys, cond))
+    return setups
+
+
+def test_cavity_sweep_on_card_matches_cpu(gpu):
+    """The reference test's cavity sweep (nu 1.0 and 0.5, 'lu' steppers,
+    2 x 4 scenarios x 6 steps, f64) on the card against the CPU."""
+    from optconpy_tpu_torch.parallel import (
+        build_sweep_gains_and_caches,
+        sweep_rollout,
+    )
+
+    outs = {}
+    for d in (gpu, CPU):
+        setups = _sweep_cavities([1.0, 0.5], d)
+        stack, ks = build_sweep_gains_and_caches(
+            setups, 0.02, 1e-8, dtype=torch.float64, num_shifts=6, n_adi=12,
+            nts_gain=4, r_max=16, solver="lu")
+        conv = ConvKernel.build(setups[0][0]["full"], setups[0][2], device=d,
+                                dtype=torch.float64)
+        vbars = stack.vbar.cpu().numpy()
+        v0 = vbars[:, None] + 1e-3 * np.random.default_rng(0).standard_normal(
+            (2, 4, vbars.shape[1]))
+        outs[d] = (ks, sweep_rollout(setups[0][1], conv, stack, ks,
+                                     torch.as_tensor(v0).to(d), 1e-8, 0.02, 6))
+    assert _rel(outs[gpu][0].cpu(), outs[CPU][0]) <= 1e-10
+    for a, b in zip(outs[gpu][1], outs[CPU][1]):
+        assert _rel(a.cpu(), b) <= 1e-10
+
+
+def test_ns_chain_certifies_on_card(gpu):
+    """The f32 Newton-Schulz stepper chain on the card (nu 1.0, 0.9, 0.8):
+    every bucket certified in f64 at 1e-4 with no extra pass, through the
+    SpMM kernel, and within 1e-4 of the f64 chain on the CPU."""
+    from optconpy_tpu_torch.mpc import build_sweep_steppers_ns_chain
+
+    nus = [1.0, 0.9, 0.8]
+    cpu_set = _sweep_cavities(nus, CPU)
+    conv = ConvKernel.build(cpu_set[0][0]["full"], cpu_set[0][2], device=CPU,
+                            dtype=torch.float64)
+    ref, _, _ = build_sweep_steppers_ns_chain(cpu_set, 0.02, conv,
+                                              dtype=torch.float64)
+    card_set = _sweep_cavities(nus, gpu)
+    fused = FusedConvKernel.build(card_set[0][0]["full"], card_set[0][2],
+                                  device=gpu)
+    spmm_kernel.launches = 0
+    got, res, info = build_sweep_steppers_ns_chain(card_set, 0.02, fused)
+    assert spmm_kernel.launches > 0
+    assert max(res) <= 1e-4 and info["extra_passes"] == [0, 0, 0]
+    for a, b in zip(got, ref):
+        assert _rel(a.lu.inv.double().cpu(), b.lu.inv) <= 1e-4
+        assert _rel(a.l1_imp.double().cpu(), b.l1_imp) <= 1e-5
+
+
+def test_conv_kernel_at_flattened_sweep_width(card):
+    """K1 on the sweep's (n, R*S) state of 3 buckets x 400 scenarios
+    (each bucket's columns a block) against its plain version."""
+    dev, fused, vbar_full = card
+    vbar = torch.as_tensor(vbar_full, dtype=torch.float32)[fused.free.cpu()]
+    v0 = vbar + 1e-3 * torch.as_tensor(
+        np.random.default_rng(2).standard_normal((3, 400, vbar.shape[0])),
+        dtype=torch.float32)
+    v = v0.to(dev).permute(2, 0, 1).contiguous().view(vbar.shape[0], 1200)
+    out = conv_kernel.conv_inner(v, fused)
+    assert _rel(out, ConvKernel.conv_inner_batch_t(fused, v)) <= 1e-5
+    assert torch.equal(out, conv_kernel.conv_inner(v, fused))

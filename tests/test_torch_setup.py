@@ -186,7 +186,8 @@ def test_port_never_imports_jax():
         " 'control.lqr', 'mpc.rollout', 'utils', 'utils.cache',"
         " 'utils.config', 'utils.metrics', 'utils.vtk', 'ops.dense',"
         " 'solvers.shifted', 'fem.heat1d', 'fem.operators', 'solvers.krylov',"
-        " 'solvers.matfree', 'fem.device_conv', 'mpc.receding'):\n"
+        " 'solvers.matfree', 'fem.device_conv', 'mpc.receding', 'parallel',"
+        " 'parallel.param_sweep'):\n"
         "    assert 'optconpy_tpu_torch.' + m in sys.modules, m\n"
         "from optconpy_tpu_torch.solvers.krylov import fgmres\n"
         "from optconpy_tpu_torch.solvers.matfree import SaddleMatfreeCache\n"
@@ -194,6 +195,11 @@ def test_port_never_imports_jax():
         "from optconpy_tpu_torch.mpc import build_nse_stepper_matfree\n"
         "from optconpy_tpu_torch.mpc.receding import receding_horizon_mpc\n"
         "from optconpy_tpu_torch.solvers.ns_inverse import NSShiftStack\n"
+        "from optconpy_tpu_torch.parallel.param_sweep import ("
+        "build_sweep_gains_and_caches, masked_sweep_stats, sweep_rollout)\n"
+        "from optconpy_tpu_torch.mpc.nse_rollout import ("
+        "build_sweep_steppers_ns_chain, nse_closed_loop_outputs,"
+        " nse_sweep_outputs)\n"
         "from optconpy_tpu_torch.riccati import ("
         "build_dre_cache_dae_krylov, build_dre_cache_dae_matfree)\n"
         "assert 'jax' not in sys.modules\n"
