@@ -17,7 +17,9 @@ the card. Phases:
      plain torch version at B=1024 and B=3 (<= 1e-5), timed beside the
      bound and the replaced kernel's time;
   4. DRE gains in f32 and f64 on the card from one f64 host splu stack
-     (f32-vs-f64 gain deviation <= 1e-4);
+     (f32-vs-f64 gain deviation <= 1e-4); every step's f32 factors
+     certified by scripts/validate_gains.py (projected DRE residual, host
+     f64, below the GAINQ bound 1e-3; one Leray projector for the six);
   5. the fused closed loop through the convection kernel: one launch per
      step, finite outputs, TF32 off, solves/s from warm runs; a
      torch.profiler listing of one step (one convection kernel, no
@@ -32,11 +34,14 @@ the card. Phases:
   8. the f32 NS stack at the bench shape's 6 shifts through the SpMM
      kernel: per-shift deviation from phase 4's host stack, gains vs
      phase 4's f64 gains (<= 1e-4);
-  9. config 3: the f64 NS stack certified at 1e-8 and its DRE sweep,
+  9. config 3 with the shift interval of scripts/config3_cylinder.py
+     (the coarse mesh's projected bottom, the fine mesh's ARPACK top):
+     the f64 NS stack certified at 1e-8 and its DRE sweep,
      then the f32 stack at certify_tol 5e-4 (each shift's probe
      evaluated in f32 and in f64; the f64 one certifies) and its sweep
      (first and warm); |JZ|/|Z| <= 1e-5 and the projected DRE residual at
-     steps 0 and 8 <= 1e-2 (host f64); f32-vs-f64 gain deviation <= 1e-4;
+     steps 0 and 8 <= 1e-2 (host f64, one Leray projector for phases 9
+     and 11 (b)); f32-vs-f64 gain deviation <= 1e-4;
  10. the user's entry point, optconpy_tpu_torch.optcont.optcon_nse:
      (a) config 4 (the bench shape with a feedforward and a gain for
      every one of 64 steps, y* = steady output + 0.01) in f32 on the
@@ -53,15 +58,19 @@ the card. Phases:
      through SaddleMatfreeCache (tol 1e-11) vs the same iterations
      through phase 4's host inverse stack (<= 1e-6), and the matrix-free
      stepper (tol 1e-12) vs the lu stepper, 3 scenarios x 6 steps in both
-     feedback modes (v, u, y <= 1e-7); (b) after phase 9, config 3 in
-     f32 at full width: the matrix-free DRE sweep (FGMRES tol 1.05e-4, 8
-     cycles) vs phase 9's f64 NS gains (<= 1e-3) with the projected DRE
-     residual at step 0 (<= 1e-2), K1 at B=16 vs plain (<= 1e-5), and
-     the matrix-free closed loop, 16 scenarios x 100 steps, implicit
-     feedback, controlled and uncontrolled (energy ratio at T < 0.5, K1
-     101 launches a rollout), with profiler listings of one ADI solve and
-     one rollout step; (c) inside phase 10, the cavity on the matrix-free
-     step and DRE tiers over 4 of its 20 steps, card vs CPU (<= 1e-8);
+     feedback modes (v, u, y <= 1e-7); (b) after phase 9, the rest of
+     scripts/config3_cylinder.py in f32 at full width: the matrix-free
+     DRE sweep at 12 shifts (FGMRES tol 1.05e-4, 8 cycles), first and 3
+     warm repeats, vs phase 9's f64 NS gains (<= 1e-3) and its f32 NS
+     gains (the script's parity, printed), the projected DRE residual at
+     step 0 (<= 1e-2), the CPU splu ADI baseline (12 factors, median of
+     3, load average), K1 at B=16 vs plain (<= 1e-5), and the matrix-free
+     closed loop from phase 9's f32 NS gain, 16 scenarios x 100 steps,
+     implicit feedback, controlled and uncontrolled (energy ratio at T <
+     0.5, K1 101 launches a rollout), with profiler listings of one ADI
+     solve and one rollout step; (c) inside phase 10, the cavity on the
+     matrix-free step and DRE tiers over 4 of its 20 steps, card vs CPU
+     (<= 1e-8);
      (d) after phase 3,
      QuadConvKernel at B=1024 in f32 (4 SpMM launches a call) vs
      ConvKernel's plain version (<= 1e-5), timed beside K1;
@@ -97,7 +106,21 @@ the card. Phases:
      first and last bucket (<= 1e-4), and the same scenarios in f32 on
      f32 host-LU and host-inverse steppers (printed: the f32 gap without
      the chain's inverses); a profiler listing of a warm sweep
-     (GEMM and K1 shares, device busy, no copy kernel a step).
+     (GEMM and K1 shares, device busy, no copy kernel a step);
+ 14. (a) config 3XL through scripts/config3xl_cylinder.run at the
+     reference's shape (refinement 3, n=31,282, n_p=4,145, 8 shifts, 4 DRE
+     steps x 16 ADI, rank 40, FGMRES tol 5e-5, f32): |JZ|/|Z| <= 1e-4, the
+     projected DRE residual at steps 0 and 2 <= 1e-2, a finite 8 x 20
+     closed loop, FGMRES records, warm ADI iters/s, the CPU splu baseline,
+     peak memory; K1 and K2 held against their plain versions on the
+     path's own inputs (<= 1e-5, repeats bit for bit). (b) the scenario
+     sharding (parallel/): a world-size-1 NCCL group on the card runs
+     sharded_nse_rollout on phase 5's fused stepper (ys bit-equal to
+     phase 5's, statistics equal to phase 5's outputs') and, after phase
+     13, sharded_sweep_rollout on its buckets (ys bit-equal to its warm
+     sweep, statistics equal to masked_sweep_stats); then the dry run
+     (parallel/dryrun.py) on 2 spawned gloo ranks sharing the card, whose
+     statistics must agree across the ranks.
 
 Every failed check raises, so the exit code is non-zero. The last three
 lines are the kernels JSON (each kernel's launches on every path it
@@ -173,6 +196,8 @@ MF_STEP_TOL, MF_STEP_CYCLES, MF_STEP_DEV = 1e-12, 15, 1e-7
 MF_STEP_S, MF_STEP_NTS = 3, 6
 C3_FGMRES_TOL = 4.2e-4 / 4.0
 C3_DRE_CYCLES, C3_ROLL_CYCLES = 8, 10
+C3_MF_SHIFTS = 12  # the script's matrix-free tier (config3_cylinder.py:36)
+C3_MF_WARM = 3  # warm repeats of the 12-shift sweep, as the script
 C3_ROLL_S, C3_ROLL_NTS = 16, 100
 MF_GAIN_TOL = 1e-3  # f32 matrix-free vs f64 NS gains: 10x the FGMRES tol
 ENERGY_RATIO_MAX = 0.5
@@ -213,6 +238,13 @@ SW_CERTIFY = 1e-4
 SW_REF_S = 2
 SW_WARM = 3
 SW_RECORD = "SWEEP_r05.json"  # the JAX package's run on a TPU v5 lite
+
+# Phase 14: (a) config 3XL at the shape of scripts/config3xl_cylinder.py
+# (its module's constants); (b) the sharding: world size 1 on the card
+# through NCCL, then the dry run on DRY_RANKS gloo ranks sharing it.
+XL_N, XL_NP = 31282, 4145
+DRY_RANKS = 2
+DRY_TIMEOUT_S = 300
 
 # Times of the kernels this port replaced, on an NVIDIA H100 80GB HBM3 at
 # 700 W (PERF.md), printed beside this run's: the first convection kernel
@@ -469,9 +501,12 @@ def bench_ns_phase(sys32, cache64, ks64, sig, sseq, iseq):
         f"gains vs phase 4's f64 gains {gain_dev:.2e} (tol {GAIN_TOL:g})")
 
 
-def config3_phase(c3_ops, sys64, sched) -> int:
-    """Phase 9: config 3 on the NS tier. Returns the SpMM kernel's
-    launches in the f32 NS build and the f64 NS gains."""
+def config3_phase(c3_ops, sys64, sched):
+    """Phase 9: config 3 on the NS tier (the NS tier of
+    scripts/config3_cylinder.py, with an f64 stack beside it). Returns
+    the SpMM kernel's launches in the f32 NS build, the f64 and f32 NS
+    gains, and the Leray projector of config 3's operators with its
+    build seconds."""
     import torch
 
     from optconpy_tpu_torch.ops import spmm_kernel
@@ -479,9 +514,16 @@ def config3_phase(c3_ops, sys64, sched) -> int:
         build_dre_cache_dae_ns,
         dre_backward_sweep,
     )
-    from optconpy_tpu_torch.riccati.validate import dre_step_residual
+    from optconpy_tpu_torch.riccati.validate import (
+        dre_step_residual,
+        leray_projector,
+    )
+    from optconpy_tpu_torch.scripts import config3_cylinder as c3
 
     sig, sseq, iseq = sched
+    check((C3_RE, C3_DT, C3_ALPHA, C3_SHIFTS, C3_ADI, C3_R_MAX, C3_NTS)
+          == (c3.RE, c3.DT, c3.ALPHA, c3.NS_SHIFTS, c3.N_ADI, c3.R_MAX,
+              c3.NTS_GAIN), "phase 9 runs scripts/config3_cylinder.py's shape")
     sys32 = sys64.to(dtype=torch.float32)
     adi_iters = C3_NTS * C3_ADI  # one Newton step per DRE step
 
@@ -526,15 +568,17 @@ def config3_phase(c3_ops, sys64, sched) -> int:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del cache
     check(bool(torch.isfinite(ks).all()), "config-3 f32 gains finite")
-    feas = float(sys32.jmat.matmat(zs[0]).abs().max() / zs[0].abs().max())
+    feas = c3.feasibility(sys32, zs[0])
     check(feas <= FEAS_TOL, f"|JZ|/|Z| = {feas:.2e}")
     gain_dev = rel_err(ks.double(), ks64)
     check(gain_dev <= GAIN_TOL, f"config-3 f32 vs f64 gains: {gain_dev:.2e}")
     t0 = time.perf_counter()
+    pit = leray_projector(c3_ops)
+    t_pit = time.perf_counter() - t0
     residuals = {
         step: dre_step_residual(
             c3_ops, zs[step].cpu().numpy(), ks[step].cpu().numpy(),
-            zs[step + 1].cpu().numpy(), C3_ALPHA, C3_DT,
+            zs[step + 1].cpu().numpy(), C3_ALPHA, C3_DT, pit=pit,
         )
         for step in (0, C3_NTS // 2)
     }
@@ -565,9 +609,11 @@ def config3_phase(c3_ops, sys64, sched) -> int:
         f"{fingerprint(ks.cpu().numpy())}")
     log(f"    |JZ|/|Z| {feas:.2e} (tol {FEAS_TOL:g}); projected DRE residual "
         f"{ {k: f'{v:.2e}' for k, v in residuals.items()} } (tol "
-        f"{DRE_RES_TOL:g}, host f64 {time.perf_counter() - t0:.1f} s); "
-        f"f32 vs f64 gain deviation {gain_dev:.2e} (tol {GAIN_TOL:g})")
-    return launches, ks64
+        f"{DRE_RES_TOL:g}, host f64 {time.perf_counter() - t0:.1f} s: the "
+        f"Leray projector built once in {t_pit:.1f} s for these and phase "
+        f"11 (b)'s, {t_pit:.1f} s saved here); f32 vs f64 gain deviation "
+        f"{gain_dev:.2e} (tol {GAIN_TOL:g})")
+    return launches, ks64, ks, pit, t_pit
 
 
 def driver_configs():
@@ -866,11 +912,14 @@ def matfree_bench_phase(np_ops, cond, sys64, cache64, sched, dev) -> dict:
     return launches
 
 
-def matfree_config3_phase(c3_ops, c3_cond, c3_sys64, sched, ks64, dev):
-    """Phase 11 (b): config 3 in f32 on the matrix-free tier: the DRE
-    sweep against phase 9's f64 NS gains, the projected DRE residual,
-    K1 at the rollout's width, and the closed loop controlled and
-    uncontrolled. Returns (K1's, K2's) launches by path."""
+def matfree_config3_phase(c3_ops, c3_cond, c3_sys64, sched12, ks64, ks_ns32,
+                          pit, t_pit, dev):
+    """Phase 11 (b): the rest of scripts/config3_cylinder.py in f32: the
+    matrix-free DRE sweep at its 12 shifts (first and warm) against
+    phase 9's f64 NS gains and beside its f32 NS gains, the projected DRE
+    residual, the CPU splu baseline, K1 at the rollout's width, and the
+    closed loop from phase 9's f32 NS gain, controlled and uncontrolled.
+    Returns (K1's, K2's) launches by path."""
     import torch
 
     from optconpy_tpu_torch.fem.device_conv import ConvKernel, FusedConvKernel
@@ -878,15 +927,13 @@ def matfree_config3_phase(c3_ops, c3_cond, c3_sys64, sched, ks64, dev):
         batched_nse_closed_loop,
         build_nse_stepper_matfree,
     )
-    from optconpy_tpu_torch.ops import conv_kernel, spmm_kernel
-    from optconpy_tpu_torch.riccati import (
-        build_dre_cache_dae_matfree,
-        dre_backward_sweep,
-    )
+    from optconpy_tpu_torch.ops import conv_kernel
+    from optconpy_tpu_torch.riccati import build_dre_cache_dae_matfree
     from optconpy_tpu_torch.riccati.validate import dre_step_residual
+    from optconpy_tpu_torch.scripts import config3_cylinder as c3
 
     f32 = torch.float32
-    sig, sseq, iseq = sched
+    sig = sched12[0]
     sys32 = c3_sys64.to(dtype=f32)
     n, m = sys32.b.shape
     k1, k2 = {}, {}
@@ -895,39 +942,59 @@ def matfree_config3_phase(c3_ops, c3_cond, c3_sys64, sched, ks64, dev):
         sys32, C3_DT, sig, block=MF_BLOCK, max_cycles=C3_DRE_CYCLES,
         tol=C3_FGMRES_TOL,
     ))
-    spmm_kernel.launches = 0
-    (zs, ks), t_sweep = sync_time(lambda: dre_backward_sweep(
-        sys32, mf, C3_ALPHA, C3_DT, C3_NTS, sseq, iseq, n_newton=1,
-        r_max=C3_R_MAX,
-    ))
-    k2["11b config-3 matfree DRE sweep (f32)"] = spmm_kernel.launches
+    with counted_launches(c3, "dre_backward_sweep") as sweeps:
+        zs, ks, t_sweep, warm = c3.timed_sweeps(
+            sys32, mf, sched12, warm=C3_MF_WARM, nts=C3_NTS, r_max=C3_R_MAX)
+    key = f"11b config3_script matfree DRE sweep (f32, {len(sig)} shifts)"
+    k2[key] = sweeps[0][1]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     adi_iters = C3_NTS * C3_ADI
     check(bool(torch.isfinite(ks).all()), "config-3 matfree gains finite")
-    check(spmm_kernel.launches > 0, "spmm_tile launched in the matfree DRE")
+    check(k2[key] > 0, "spmm_tile launched in the matfree DRE")
     gain_dev = rel_err(ks.double(), ks64)
     check(gain_dev <= MF_GAIN_TOL,
           f"config-3 matfree f32 vs NS f64 gains: {gain_dev:.2e}")
-    feas = float(sys32.jmat.matmat(zs[0]).abs().max() / zs[0].abs().max())
+    parity = rel_err(ks_ns32[0], ks[0])
+    feas = c3.feasibility(sys32, zs[0])
     t0 = time.perf_counter()
     res0 = dre_step_residual(c3_ops, zs[0].cpu().numpy(), ks[0].cpu().numpy(),
-                             zs[1].cpu().numpy(), C3_ALPHA, C3_DT)
+                             zs[1].cpu().numpy(), C3_ALPHA, C3_DT, pit=pit)
     t_res = time.perf_counter() - t0
     check(res0 <= DRE_RES_TOL, f"config-3 matfree DRE residual {res0:.2e}")
-    rels = np.asarray(mf.stats.relres)
-    log(f"[11b] config 3 f32 matrix-free (n={n}, n_p={c3_sys64.n_p}, "
-        f"{len(sig)} shifts, block {MF_BLOCK}, FGMRES tol {C3_FGMRES_TOL:g}, "
-        f"{C3_DRE_CYCLES} cycles): build {t_build:.2f} s; DRE sweep "
-        f"({C3_NTS} steps x {C3_ADI} ADI, rank {C3_R_MAX}, one Newton step) "
-        f"{t_sweep:.2f} s = {adi_iters / t_sweep:.2f} ADI iters/s; "
-        f"{len(rels)} FGMRES solves, relres worst {rels.max():.2e}, median "
-        f"{np.median(rels):.2e}, {int((rels > C3_FGMRES_TOL).sum())} above "
-        f"tol (the cache's record: {mf.stats.above_tol}); "
-        f"{spmm_kernel.launches} spmm_tile launches; "
-        f"peak device memory {peak_gb:.2f} GB")
+    # every sweep makes the same solves: the first's come first
+    rels = np.asarray(mf.stats.relres[:mf.stats.solves // (1 + len(warm))])
+    first = {"solves": len(rels), "worst": float(rels.max()),
+             "median": float(np.median(rels)),
+             "above_tol": int((rels > C3_FGMRES_TOL).sum())}
+    log(f"[11b] config 3 f32 matrix-free, the script's tier (n={n}, "
+        f"n_p={c3_sys64.n_p}, {len(sig)} shifts {np.round(sig, 1).tolist()}, "
+        f"block {MF_BLOCK}, FGMRES tol {C3_FGMRES_TOL:g}, {C3_DRE_CYCLES} "
+        f"cycles): build {t_build:.2f} s; DRE sweep ({C3_NTS} steps x {C3_ADI} "
+        f"ADI, rank {C3_R_MAX}, one Newton step) first {t_sweep:.2f} s = "
+        f"{adi_iters / t_sweep:.2f} ADI iters/s, warm "
+        f"{[round(t, 2) for t in warm]} s = "
+        f"{adi_iters / statistics.median(warm):.2f} ADI iters/s (median of "
+        f"{C3_MF_WARM}); the first sweep's "
+        f"{first['solves']} FGMRES solves: relres worst {first['worst']:.2e}, "
+        f"median {first['median']:.2e}, {first['above_tol']} above tol (the "
+        f"cache's record over both: {mf.stats.above_tol}); {k2[key]} "
+        f"spmm_tile launches; peak device memory {peak_gb:.2f} GB")
     log(f"      gains vs phase 9's f64 NS gains {gain_dev:.2e} (tol "
-        f"{MF_GAIN_TOL:g}); |JZ|/|Z| {feas:.2e}; projected DRE residual at "
-        f"step 0 {res0:.2e} (tol {DRE_RES_TOL:g}, host f64 {t_res:.1f} s)")
+        f"{MF_GAIN_TOL:g}); the script's parity, phase 9's f32 NS vs these "
+        f"t=0 gains, {parity:.2e}; |JZ|/|Z| {feas:.2e}; projected DRE "
+        f"residual at step 0 {res0:.2e} (tol {DRE_RES_TOL:g}, host f64 "
+        f"{t_res:.1f} s with phase 9's projector: {t_pit:.1f} s saved)")
+    cpu = c3.cpu_adi_baseline(c3_ops, sig, q_cols=sys32.p_out + C3_R_MAX + m,
+                              n_adi=C3_ADI, adi_iters=adi_iters,
+                              log=lambda _: None)
+    mf_warm = adi_iters / statistics.median(warm)
+    log(f"      CPU baseline (scipy splu of the {len(sig)} shifted saddles "
+        f"{cpu['factor_s']:.1f} s, ADI {cpu['iter_s'] * 1e3:.1f} ms an "
+        f"iteration, median of "
+        f"{[round(t * 1e3, 1) for t in cpu['iter_samples_s']]} ms, load "
+        f"average {cpu['loadavg_1min']}): {cpu['adi_iters_per_s']:.2f} ADI "
+        f"iters/s amortized; the card's warm matrix-free rate is "
+        f"{mf_warm / cpu['adi_iters_per_s']:.2f}x that")
 
     i_hard = int(np.argmax(np.abs(np.asarray(sig))))
     w_adi = torch.randn((n, sys32.p_out + C3_R_MAX + m), dtype=f32, device=dev,
@@ -959,51 +1026,38 @@ def matfree_config3_phase(c3_ops, c3_cond, c3_sys64, sched, ks64, dev):
         c3_ops, c3_cond, C3_DT, device=dev, dtype=f32, block=MF_BLOCK,
         max_cycles=C3_ROLL_CYCLES, tol=C3_FGMRES_TOL,
     ))
-    ks_roll = ks[0].expand(C3_ROLL_NTS + 1, m, n)
-    ws = torch.zeros((C3_ROLL_NTS + 1, n), dtype=f32, device=dev)
-    v0_np = vbar.numpy()[None] + 1e-3 * rng.standard_normal((C3_ROLL_S, n))
-    v0 = torch.as_tensor(v0_np, dtype=f32).to(dev)
-    mass64 = c3_sys64.mass
-    vbar_dev = stepper.vbar.double()
-
-    def energy_at_t(vs):
-        d = (vs[:, -1, :].double() - vbar_dev).T
-        return float((d * mass64.matmat(d.contiguous())).sum(0).mean())
-
-    runs = {}
-    for name, gains in (("controlled", ks_roll), ("uncontrolled",
-                                                  torch.zeros_like(ks_roll))):
-        conv_kernel.launches = 0
-        spmm_kernel.launches = 0
-        (vs, us, ys), t_roll = sync_time(lambda: batched_nse_closed_loop(
-            sys32, conv, stepper, gains, ws, v0, C3_ALPHA, C3_DT,
-            feedback="implicit",
-        ))
-        key = f"11b config-3 matfree rollout {name} (f32)"
-        k1[key], k2[key] = conv_kernel.launches, spmm_kernel.launches
-        check(k1[key] == C3_ROLL_NTS + 1,
-              f"conv_p2 launches in the {name} config-3 rollout: {k1[key]}")
-        check(k2[key] > 0, f"spmm_tile launched in the {name} rollout")
-        for nm, x in (("vs", vs), ("us", us), ("ys", ys)):
-            check(bool(torch.isfinite(x).all()), f"{name} rollout {nm} finite")
-        check(tuple(ys.shape) == (C3_ROLL_S, C3_ROLL_NTS + 1, sys32.p_out),
-              "config-3 rollout ys shape")
-        runs[name] = (energy_at_t(vs), t_roll)
+    v0 = c3.rollout_v0(stepper, C3_ROLL_S, np.random.default_rng(SEED))
+    with counted_launches(c3, "batched_nse_closed_loop") as rolls:
+        roll = c3.energy_ratio(sys32, conv, stepper, ks_ns32[0], v0,
+                               nts=C3_ROLL_NTS)
+    for (name, short), (l1, l2) in zip((("controlled", "c"),
+                                        ("uncontrolled", "u")), rolls):
+        key = f"11b config3_script rollout {name} (f32)"
+        k1[key], k2[key] = l1, l2
+        check(l1 == C3_ROLL_NTS + 1,
+              f"conv_p2 launches in the {name} config-3 rollout: {l1}")
+        check(l2 > 0, f"spmm_tile launched in the {name} rollout")
+        check(roll[f"finite_{short}"], f"{name} rollout outputs finite")
+        t_roll = roll[f"rollout_{short}_s"]
         log(f"      {name} closed loop ({C3_ROLL_S} scenarios x "
             f"{C3_ROLL_NTS} steps, implicit feedback, tol {C3_FGMRES_TOL:g}, "
             f"{C3_ROLL_CYCLES} cycles): {t_roll:.2f} s = "
-            f"{C3_ROLL_S * C3_ROLL_NTS / t_roll:.1f} solves/s; conv_p2 "
-            f"{k1[key]} launches, spmm_tile {k2[key]}; perturbation energy at "
-            f"T {runs[name][0]:.4e}")
-        del vs, us, ys
-    ratio = runs["controlled"][0] / runs["uncontrolled"][0]
+            f"{C3_ROLL_S * C3_ROLL_NTS / t_roll:.1f} solves/s; conv_p2 {l1} "
+            f"launches, spmm_tile {l2}; perturbation energy at T "
+            f"{roll[f'energy_{short}']:.4e}")
+    check(roll["ys_shape"] == (C3_ROLL_S, C3_ROLL_NTS + 1, sys32.p_out),
+          f"config-3 rollout ys shape {roll['ys_shape']}")
+    ratio = roll["ratio"]
     check(ratio < ENERGY_RATIO_MAX, f"config-3 energy ratio {ratio:.3e}")
     log(f"      stepper build {t_step:.2f} s; energy ratio controlled / "
-        f"uncontrolled at T {ratio:.4e} (bound < {ENERGY_RATIO_MAX:g})")
+        f"uncontrolled at T {ratio:.4e} (bound < {ENERGY_RATIO_MAX:g}; "
+        f"phase 9's f32 NS gain, as the script)")
+    ks_roll = ks_ns32[0].expand(2, m, n)
+    ws = torch.zeros((2, n), dtype=f32, device=dev)
     profile_listing(
         f"one rollout step ({C3_ROLL_S} scenarios, implicit feedback)",
         lambda: batched_nse_closed_loop(
-            sys32, conv, stepper, ks_roll[:2], ws[:2], v0, C3_ALPHA, C3_DT,
+            sys32, conv, stepper, ks_roll, ws, v0, C3_ALPHA, C3_DT,
             feedback="implicit",
         ),
     )
@@ -1255,15 +1309,15 @@ def receding_lu_phase(dev):
 @contextmanager
 def recorded_conv_input():
     """Inside the block, the convection kernel's wrapper keeps a copy of
-    the first X it is handed (the path's own input). Yields a list that
-    holds it after the first call."""
+    the first X it is handed (the path's own input) and its evaluator.
+    Yields a list that holds (X, conv) after the first call."""
     from optconpy_tpu_torch.ops import conv_kernel
 
     wrapper, seen = conv_kernel.conv_inner, []
 
     def recording(v_t, conv):
         if not seen:
-            seen.append(v_t.clone())
+            seen.append((v_t.clone(), conv))
         return wrapper(v_t, conv)
 
     conv_kernel.conv_inner = recording
@@ -1274,19 +1328,21 @@ def recorded_conv_input():
 
 
 @contextmanager
-def counted_spmm_launches(module, name: str):
-    """Inside the block, module.name counts the SpMM kernel launches of
-    each of its calls. Yields the list of those counts, one a call."""
-    from optconpy_tpu_torch.ops import spmm_kernel
+def counted_launches(module, name: str):
+    """Inside the block, module.name counts the launches of both kernels
+    in each of its calls. Yields the list of (conv_p2, spmm_tile) counts,
+    one a call."""
+    from optconpy_tpu_torch.ops import conv_kernel, spmm_kernel
 
     fn, counts = getattr(module, name), []
 
     def counting(*args, **kwargs):
-        k0 = spmm_kernel.launches
+        k0 = (conv_kernel.launches, spmm_kernel.launches)
         try:
             return fn(*args, **kwargs)
         finally:
-            counts.append(spmm_kernel.launches - k0)
+            counts.append((conv_kernel.launches - k0[0],
+                           spmm_kernel.launches - k0[1]))
 
     setattr(module, name, counting)
     try:
@@ -1295,11 +1351,48 @@ def counted_spmm_launches(module, name: str):
         setattr(module, name, fn)
 
 
-def sweep_phase(dev, card: str):
+def check_conv_input(label: str, x, conv) -> dict:
+    """K1 vs its plain version (the slot sums) on a path's own input X
+    and evaluator: KERNEL_TOL relative and a repeat bit for bit, timed
+    beside the plain version and the bound. Returns its JSON record."""
+    import torch
+
+    from optconpy_tpu_torch.fem.device_conv import ConvKernel
+    from optconpy_tpu_torch.ops import conv_kernel
+
+    n, b = x.shape
+    out = conv_kernel.conv_inner(x, conv)
+    ref = ConvKernel.conv_inner_batch_t(conv, x)
+    err, abs_err = rel_err(out, ref), float((out - ref).abs().max())
+    check(bool(torch.isfinite(out).all()), f"conv_p2 on the {label} X finite")
+    check(err <= KERNEL_TOL, f"conv_p2 on the {label} X (B={b}): {err:.2e}")
+    check(torch.equal(out, conv_kernel.conv_inner(x, conv)),
+          f"conv_p2 repeats bit for bit on the {label} X")
+    k_ms = event_ms(lambda: conv_kernel.conv_inner(x, conv), 20)
+    p_ms = event_ms(lambda: ConvKernel.conv_inner_batch_t(conv, x), 3)
+    nt, plan = conv.tri_dofs.shape[0], conv.plan
+    plan_bytes = sum(
+        t.numel() * t.element_size()
+        for t in (plan.vsrc, plan.vdir, plan.pelem, plan.pnd, plan.psptr,
+                  plan.pslot, plan.pdst, plan.bdst, plan.bsrc))
+    bnd = bound_ms(4 * (2 * n * b + nt * 432) + plan_bytes, 1008 * nt * b,
+                   "float32")
+    log(f"     conv_p2 on the {label} X (n={n}, nt={nt}, B={b}): rel err "
+        f"{err:.2e} (abs {abs_err:.2e}, tol {KERNEL_TOL:g}) vs the plain "
+        f"slot sums, repeats bit for bit; {k_ms:.3f} ms/call (events), plain "
+        f"{p_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}) = "
+        f"{bnd[0] / k_ms:.0%} of the kernel's time")
+    return {"B": b, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "max_abs_err": abs_err}
+
+
+def sweep_phase(dev, card: str, mesh):
     """Phase 13: the config-5 Re-bucket parameter sweep in f32 at the
-    shape of scripts/sweep_config5.py. Returns each kernel's launches by
-    path, K1's record at the sweep's width and both kernels' largest
-    absolute errors against their plain versions on the path's inputs."""
+    shape of scripts/sweep_config5.py, and phase 14 (b)'s sharded sweep
+    on its buckets over `mesh` (world size 1). Returns each kernel's
+    launches by path, K1's record at the sweep's width and both kernels'
+    largest absolute errors against their plain versions on the path's
+    inputs."""
     import torch
 
     from optconpy_tpu_torch import riccati
@@ -1316,6 +1409,8 @@ def sweep_phase(dev, card: str):
         assign_re_buckets,
         build_sweep_gains_and_caches,
         masked_sweep_stats,
+        shard_scenarios,
+        sharded_sweep_rollout,
         sweep_rollout,
     )
     from optconpy_tpu_torch.riccati import (
@@ -1356,19 +1451,20 @@ def sweep_phase(dev, card: str):
     info = {}
     k2_0 = spmm_kernel.launches
     with recorded_spmm_inputs() as seen, \
-            counted_spmm_launches(riccati, "dre_backward_sweep") as k2_dres, \
-            counted_spmm_launches(param_sweep,
-                                  "build_sweep_steppers_ns_chain") as k2_ch:
+            counted_launches(riccati, "dre_backward_sweep") as dre_calls, \
+            counted_launches(param_sweep,
+                             "build_sweep_steppers_ns_chain") as chain_calls:
         (cache_stack, ks), t_gains = sync_time(
             lambda: build_sweep_gains_and_caches(
                 setups, DT, ALPHA, dtype=f32, solver="inverse_ns",
                 dre_solver="matfree", conv=conv, info=info, **SW_GAINS))
     peak_gains = torch.cuda.max_memory_allocated() / 1e9
     k2_gains = spmm_kernel.launches - k2_0
-    k2_dre, k2_chain = sum(k2_dres), sum(k2_ch)
-    check(len(k2_dres) == SW_BUCKETS and len(k2_ch) == 1,
+    k2_dres = [k2 for _, k2 in dre_calls]
+    k2_dre, k2_chain = sum(k2_dres), sum(k2 for _, k2 in chain_calls)
+    check(len(k2_dres) == SW_BUCKETS and len(chain_calls) == 1,
           f"one DRE sweep a bucket and one chain: {len(k2_dres)}, "
-          f"{len(k2_ch)}")
+          f"{len(chain_calls)}")
     res, chain = info["ns_residuals"], info["ns_chain"]
     check(bool(torch.isfinite(ks).all()), "sweep gains finite")
     check(max(res) <= SW_CERTIFY, f"NS chain certified: {res}")
@@ -1464,31 +1560,8 @@ def sweep_phase(dev, card: str):
         f"GB; warm ys fingerprints {prints} (bit-equal)")
 
     # --- K1 at the sweep's own first-step input ---
-    x1 = first_x[0]
-    b = x1.shape[1]
-    out = conv_kernel.conv_inner(x1, conv)
-    ref = ConvKernel.conv_inner_batch_t(conv, x1)
-    k1_err, k1_abs = rel_err(out, ref), float((out - ref).abs().max())
-    check(k1_err <= KERNEL_TOL, f"conv_p2 at the sweep's B={b}: {k1_err:.2e}")
-    check(torch.equal(out, conv_kernel.conv_inner(x1, conv)),
-          f"conv_p2 repeats bit for bit at B={b}")
-    k_ms = event_ms(lambda: conv_kernel.conv_inner(x1, conv), 20)
-    p_ms = event_ms(lambda: ConvKernel.conv_inner_batch_t(conv, x1), 3)
-    nt, plan = conv.tri_dofs.shape[0], conv.plan
-    plan_bytes = sum(
-        t.numel() * t.element_size()
-        for t in (plan.vsrc, plan.vdir, plan.pelem, plan.pnd, plan.psptr,
-                  plan.pslot, plan.pdst, plan.bdst, plan.bsrc))
-    bnd = bound_ms(4 * (2 * n * b + nt * 432) + plan_bytes, 1008 * nt * b,
-                   "float32")
-    k1_rec = {"B": b, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
-              "bound_by": bnd[1], "max_abs_err": k1_abs}
-    log(f"     conv_p2 on the sweep's first-step X (n={n}, B={b}): rel err "
-        f"{k1_err:.2e} (abs {k1_abs:.2e}, tol {KERNEL_TOL:g}) vs the plain "
-        f"slot sums, repeats bit for bit; {k_ms:.3f} ms/call (events), plain "
-        f"{p_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}) = "
-        f"{bnd[0] / k_ms:.0%} of the kernel's time")
-    del first_x, x1, out, ref
+    k1_rec = check_conv_input("sweep's first-step", *first_x[0])
+    del first_x
 
     # --- statistics, and the same with NaN padded rows ---
     stats = masked_sweep_stats(ys, u_sq, ALPHA, DT, ystar, mask_d)
@@ -1516,6 +1589,26 @@ def sweep_phase(dev, card: str):
             f"{float(stats['tracking_err_T'][r]):.4e} "
             f"({rec['terminal_err_per_bucket'][r]:.4e}), max |y| "
             f"{float(stats['max_abs_y'][r]):.4e}")
+
+    # --- 14 (b): the sharded sweep at world size 1 ---
+    conv_kernel.launches = 0
+    spmm_kernel.launches = 0
+    (ys_sh, stats_sh), t_sh = sync_time(lambda: sharded_sweep_rollout(
+        mesh, sys32, conv, cache_stack, ks, shard_scenarios(mesh, v0, dim=1),
+        ALPHA, DT, SW_NTS, ystar=ystar,
+        mask_local=shard_scenarios(mesh, mask_d, dim=1)))
+    k1_sh, k2_sh = conv_kernel.launches, spmm_kernel.launches
+    check(k1_sh == SW_NTS and k2_sh == 0,
+          f"launches in the sharded sweep: conv_p2 {k1_sh}, spmm_tile {k2_sh}")
+    check(torch.equal(ys_sh, ys), "sharded sweep ys bit-equal to the sweep's")
+    same = {k: torch.equal(stats_sh[k], stats[k]) for k in stats}
+    check(all(same.values()),
+          f"sharded sweep statistics equal masked_sweep_stats: {same}")
+    log(f"[14b] sharded_sweep_rollout ({mesh.world_size} rank, NCCL) on the "
+        f"{SW_BUCKETS} buckets: {t_sh:.3f} s; ys bit-equal to the sweep's, "
+        f"statistics equal to masked_sweep_stats (all-reduced partials); "
+        f"conv_p2 {k1_sh} launches, spmm_tile {k2_sh}")
+    del ys_sh, stats_sh
 
     # --- f64 check on the host-LU stepper tier ---
     t0 = time.perf_counter()
@@ -1577,10 +1670,194 @@ def sweep_phase(dev, card: str):
     torch.cuda.empty_cache()
     log(f"[13] phase 13 wall {time.perf_counter() - t_phase:.1f} s on {card}")
     key = f"13 sweep ({SW_BUCKETS} x {s_max} x {SW_NTS}, f32)"
-    k1 = {key: k1_sweep}
+    k1 = {key: k1_sweep, f"14b sharded_sweep_rollout ({SW_BUCKETS} x "
+          f"{s_max} x {SW_NTS}, world size 1)": k1_sh}
     k2 = {f"13 sweep gains (matfree DRE, {SW_BUCKETS} buckets)": k2_dre,
           f"13 sweep NS chain ({SW_BUCKETS} buckets)": k2_chain}
     return k1, k2, k1_rec, k2_abs
+
+
+def config3xl_phase(dev):
+    """Phase 14 (a): scripts/config3xl_cylinder.run at the reference's
+    shape, K1 and K2 held against their plain versions on the inputs the
+    run handed them. Returns each kernel's launches by path, K1's record
+    at 3XL and K2's largest absolute error."""
+    from optconpy_tpu_torch.ops import conv_kernel, spmm_kernel
+    from optconpy_tpu_torch.scripts import config3xl_cylinder as xl
+
+    import torch
+
+    t0 = time.perf_counter()
+    arrays = {}
+    log(f"[14a] config 3XL (scripts/config3xl_cylinder.run: Re={xl.RE:g}, "
+        f"refinement {xl.REFINEMENT}, {xl.N_SHIFTS} shifts, {xl.NTS_GAIN} DRE "
+        f"steps x {xl.N_ADI} ADI, rank {xl.R_MAX}, FGMRES tol {xl.FGMRES_TOL:g}"
+        f", f32, {xl.S_BATCH} x {xl.NTS_ROLL} closed loop):")
+    conv_kernel.launches = 0
+    spmm_kernel.launches = 0
+    with recorded_spmm_inputs() as seen, recorded_conv_input() as xs, \
+            counted_launches(xl, "dre_backward_sweep") as sweeps, \
+            counted_launches(xl, "batched_nse_closed_loop") as rolls:
+        out = xl.run(dev, log=lambda msg: log(f"      {msg}"), arrays=arrays)
+    k1_all, k2_all = conv_kernel.launches, spmm_kernel.launches
+    t_run = time.perf_counter() - t0
+    check((out["n_state"], out["n_pressure"]) == (XL_N, XL_NP),
+          f"3XL sizes {out['n_state']}, {out['n_pressure']}")
+    check(out["feasibility_JZ"] <= xl.FEASIBILITY_BOUND,
+          f"3XL |JZ|/|Z| {out['feasibility_JZ']:.2e}")
+    check(out["worst_dre_residual"] <= xl.RESIDUAL_BOUND,
+          f"3XL projected DRE residual {out['worst_dre_residual']:.2e}")
+    check(out["finite"], "3XL closed loop finite")
+    check(len(sweeps) == 2 and all(k2 > 0 for _, k2 in sweeps),
+          f"spmm_tile launched in both 3XL DRE sweeps: {sweeps}")
+    check(len(rolls) == 1 and rolls[0][0] == xl.NTS_ROLL + 1,
+          f"conv_p2 launches in the 3XL rollout: {rolls}")
+    k2_abs = check_spmm_inputs("14a 3XL", seen)
+    k1_rec = check_conv_input("3XL rollout's first", *xs[0])
+    del seen, xs
+    mf, sys32, ks = arrays["dre_cache"], arrays["sys"], arrays["ks"]
+    i_hard = int(np.argmax(np.abs(np.asarray(arrays["sig"]))))
+    w_adi = torch.randn((sys32.n, sys32.p_out + xl.R_MAX + sys32.m_in),
+                        dtype=sys32.b.dtype, device=dev,
+                        generator=torch.Generator(dev).manual_seed(1))
+    profile_listing(
+        f"one 3XL ADI solve (SMW, shift {arrays['sig'][i_hard]:.1f}, "
+        f"{w_adi.shape[1]} + {sys32.m_in} columns)",
+        lambda: mf.solve_smw(i_hard, ks[0].T.contiguous(), sys32.b, w_adi))
+    del arrays, mf, sys32, ks, w_adi
+    log(f"     3XL wall {t_run:.1f} s: setup {out['setup_s']} s, shifts "
+        f"{out['shifts_s']} s, cache {out['cache_build_s']} s, probes "
+        f"{out['probe_s']} s (relres {out['fgmres_relres_per_shift']}); DRE "
+        f"sweep first {out['dre_sweep_s']} s = {out['adi_iters_per_s_first']} "
+        f"ADI iters/s, warm {out['dre_sweep_warm_s']} s = "
+        f"{out['adi_iters_per_s_warm']} ADI iters/s; FGMRES first "
+        f"{out['fgmres_dre_first']}, warm {out['fgmres_dre_warm']}; CPU splu "
+        f"{out['cpu_splu_factor_s_per_shift']} s a factor, "
+        f"{out['cpu_adi_iters_per_s']} ADI iters/s (load average "
+        f"{out['host_loadavg_1min']}), the card's warm rate "
+        f"{out['adi_warm_vs_cpu']}x; |JZ|/|Z| {out['feasibility_JZ']:.3e} (tol "
+        f"{xl.FEASIBILITY_BOUND:g}); residuals "
+        f"{[f'{r:.3e}' for r in out['projected_residuals']]} (tol "
+        f"{xl.RESIDUAL_BOUND:g}; Leray projector {out['projector_s']:.1f} s, "
+        f"built once: {out['projector_saved_s']:.1f} s of host time saved); "
+        f"rollout {out['rollout_s']} s; peak device memory "
+        f"{out['peak_device_memory_gb']:.2f} GB; launches conv_p2 {k1_all}, "
+        f"spmm_tile {k2_all} (DRE sweeps {[k for _, k in sweeps]}, rollout "
+        f"{rolls[0][1]})")
+    k1 = {"14a config3xl rollout (f32, 8 x 20)": rolls[0][0]}
+    k2 = {"14a config3xl DRE sweep first (f32)": sweeps[0][1],
+          "14a config3xl DRE sweep warm (f32)": sweeps[1][1],
+          "14a config3xl probes, stepper and rollout (f32)":
+              k2_all - sweeps[0][1] - sweeps[1][1]}
+    return k1, k2, k1_rec, k2_abs
+
+
+def sharded_fused_phase(mesh, sys32, conv, fused32, ks, ws, v0, ys, us):
+    """Phase 14 (b), first part: sharded_nse_rollout on phase 5's fused
+    stepper over `mesh` (world size 1): ys bit-equal to phase 5's and the
+    statistics those of phase 5's outputs. Returns K1's launches."""
+    import torch
+
+    from optconpy_tpu_torch.ops import conv_kernel
+    from optconpy_tpu_torch.parallel import shard_scenarios, sharded_nse_rollout
+
+    conv_kernel.launches = 0
+    (ys_sh, stats), t_sh = sync_time(lambda: sharded_nse_rollout(
+        mesh, sys32, conv, fused32, ks, ws, shard_scenarios(mesh, v0), ALPHA,
+        DT))
+    launches = conv_kernel.launches
+    check(launches == NTS, f"conv_p2 launches in the sharded rollout: "
+                           f"{launches}")
+    check(torch.equal(ys_sh, ys), "sharded rollout ys bit-equal to phase 5's")
+    cost = (ys**2).sum() * DT + ALPHA * (us**2).sum() * DT
+    count = torch.tensor(float(len(v0)), dtype=ys.dtype, device=ys.device)
+    want = {"mean_cost": cost / count, "max_abs_y": ys.abs().amax(),
+            "scenarios": count}
+    same = {k: torch.equal(stats[k], want[k]) for k in want}
+    check(all(same.values()), f"sharded rollout statistics: {same}")
+    log(f"[14b] {mesh.world_size}-rank NCCL group on the card: "
+        f"sharded_nse_rollout on phase 5's fused stepper ({len(v0)} x {NTS}) "
+        f"{t_sh:.3f} s; ys bit-equal to phase 5's, statistics equal to its "
+        f"outputs' (mean cost {float(stats['mean_cost']):.6e}); conv_p2 "
+        f"{launches} launches")
+    return launches
+
+
+def _dryrun_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One spawned rank of phase 14 (b)'s dry run: gloo on the shared
+    card, the kernels' launches counted, its record written to out_dir."""
+    import os
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import torch
+
+    from optconpy_tpu_torch import utils
+    from optconpy_tpu_torch.ops import conv_kernel, spmm_kernel
+    from optconpy_tpu_torch.parallel import init_multihost, scenario_mesh
+    from optconpy_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    utils.setup()
+    dev = torch.device("cuda", 0)
+    init_multihost(dev, f"file://{store}", rank=rank, world_size=world,
+                   backend="gloo")
+    try:
+        t0 = time.perf_counter()
+        out = dryrun_multichip(scenario_mesh(dev))
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+        out["launches"] = {"conv_p2": conv_kernel.launches,
+                           "spmm_tile": spmm_kernel.launches}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def dryrun_phase() -> tuple[dict, dict]:
+    """Phase 14 (b), last part: parallel/dryrun.py on DRY_RANKS spawned
+    gloo ranks sharing the card (a file store, no port). Every stage's
+    global statistics must agree across the ranks. Returns each kernel's
+    launches by rank."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_dryrun_rank,
+                                 args=(DRY_RANKS, f"{tmp}/store", tmp),
+                                 nprocs=DRY_RANKS, join=False,
+                                 start_method="spawn")
+        while not ctx.join(timeout=1):  # raises when a rank failed
+            if time.perf_counter() - t0 > DRY_TIMEOUT_S:
+                for p in ctx.processes:
+                    p.terminate()
+                raise RuntimeError(f"the dry run's ranks did not finish in "
+                                   f"{DRY_TIMEOUT_S} s")
+        wall = time.perf_counter() - t0
+        recs = []
+        for r in range(DRY_RANKS):
+            with open(f"{tmp}/rank{r}.json") as fh:
+                recs.append(json.load(fh))
+    first = recs[0]
+    for rec in recs:
+        check(rec["world_size"] == DRY_RANKS, f"dry run world {rec}")
+        for stage in ("closed_loop", "sweep", "matfree_rollout"):
+            check(rec[stage] == first[stage],
+                  f"dry run {stage} statistics agree across ranks: "
+                  f"{rec[stage]} vs {first[stage]}")
+        check(rec["launches"]["conv_p2"] > 0 and rec["launches"]["spmm_tile"] > 0,
+              f"both kernels launched in rank {rec['rank']}: {rec['launches']}")
+    log(f"[14b] dry run (parallel/dryrun.py) on {DRY_RANKS} spawned gloo ranks "
+        f"sharing the card: {wall:.1f} s wall (the ranks' own "
+        f"{[round(r['seconds'], 1) for r in recs]} s); every stage passed on "
+        f"every rank, global statistics equal across ranks: sharded_closed_loop "
+        f"{first['closed_loop']}, sharded_sweep_rollout {first['sweep']}, "
+        f"sharded_nse_rollout (matfree) {first['matfree_rollout']}; launches "
+        f"{[r['launches'] for r in recs]}")
+    k1 = {f"14b sharded dryrun rank {r['rank']} (gloo, f32)":
+          r["launches"]["conv_p2"] for r in recs}
+    k2 = {f"14b sharded dryrun rank {r['rank']} (gloo, f32)":
+          r["launches"]["spmm_tile"] for r in recs}
+    return k1, k2
 
 
 def main() -> None:
@@ -1605,6 +1882,8 @@ def main() -> None:
         dre_shift_schedule_dae,
         load_or_build_inverse_stack,
     )
+    from optconpy_tpu_torch.parallel import init_multihost, scenario_mesh
+    from optconpy_tpu_torch.scripts import config3_cylinder, validate_gains
     from optconpy_tpu_torch.solvers.saddle import SaddleShiftedInverseCache
 
     t_start = time.perf_counter()
@@ -1740,7 +2019,7 @@ def main() -> None:
         )
 
     (_, ks64), t_dre64 = sync_time(lambda: dre(sys64, cache64, ALPHA))
-    (_, ks32), t_first = sync_time(lambda: dre(sys32, cache32, ALPHA))
+    (zs32, ks32), t_first = sync_time(lambda: dre(sys32, cache32, ALPHA))
     gain_dev = rel_err(ks32.to(f64), ks64)
     check(bool(torch.isfinite(ks32).all()), "f32 gains finite")
     check(gain_dev <= GAIN_TOL, f"f32 vs f64 gains: {gain_dev:.2e}")
@@ -1755,6 +2034,21 @@ def main() -> None:
         f"ADI iters/s; f32 vs f64 gain deviation {gain_dev:.2e} "
         f"(tol {GAIN_TOL:g})")
     del cache32
+    check((RE, REFINEMENT, DT, ALPHA, NTS_GAIN, R_MAX, N_SHIFTS, N_ADI,
+           N_NEWTON) == (validate_gains.RE, validate_gains.REFINEMENT,
+                         validate_gains.DT, validate_gains.ALPHA,
+                         validate_gains.NTS_GAIN, validate_gains.R_MAX,
+                         validate_gains.N_SHIFTS, validate_gains.N_ADI,
+                         validate_gains.N_NEWTON),
+          "phase 4 runs scripts/validate_gains.py's bench shape")
+    gq = validate_gains.certify(np_ops, zs32, ks32, log=lambda _: None)
+    log(f"    GAINQ (scripts/validate_gains.py): projected DRE residual of the "
+        f"f32 factors by step {[f'{r:.2e}' for r in gq['residuals']]} (host "
+        f"f64), worst {gq['worst']:.2e} < {validate_gains.RESIDUAL_BOUND:g}; "
+        f"{gq['residual_s']:.2f} s with one Leray projector built in "
+        f"{gq['projector_s']:.2f} s ({gq['saved_s']:.2f} s of host time saved "
+        f"over {len(gq['residuals'])} steps)")
+    del zs32
 
     # --- 5. rollout -----------------------------------------------------
     t0 = time.perf_counter()
@@ -1794,9 +2088,10 @@ def main() -> None:
         f"wall, device busy {busy_us / 1e3:.2f} ms = "
         f"{busy_us / 1e3 / (wall * 1e3):.1%}); per step: calls, us, share "
         f"of the wall")
-    for name, (calls, us) in sorted(rows.items(), key=lambda r: -r[1][1]):
-        log(f"      {calls / NTS:6.3f} x {us / calls:9.2f} us "
-            f"{us / 1e3 / (wall * 1e3):6.1%}  {name[:110]}")
+    for name, (n_calls, dev_us) in sorted(rows.items(),
+                                          key=lambda r: -r[1][1]):
+        log(f"      {n_calls / NTS:6.3f} x {dev_us / n_calls:9.2f} us "
+            f"{dev_us / 1e3 / (wall * 1e3):6.1%}  {name[:110]}")
 
     def calls(*words):
         return sum(c for name, (c, _) in rows.items()
@@ -1834,6 +2129,12 @@ def main() -> None:
         f"{time.perf_counter() - t0:.1f} s): {roll_dev:.2e} "
         f"(tol {ROLLOUT_TOL:g})")
 
+    # --- 14 (b). the sharded rollout at world size 1 ---------------------
+    store = tempfile.TemporaryDirectory()
+    init_multihost(dev, f"file://{store.name}/store", rank=0, world_size=1)
+    mesh = scenario_mesh(dev)
+    k1_sharded = sharded_fused_phase(mesh, sys32, conv, fused32, ks, ws, v0,
+                                     ys, us)
     del fused64, fused32, conv, conv64
 
     # --- 7. SpMM kernel vs plain on the config-3 pencil -----------------
@@ -1843,16 +2144,20 @@ def main() -> None:
     )
     t_setup3 = time.perf_counter() - t0
     t0 = time.perf_counter()
-    c3_sched = dre_shift_schedule_dae(
-        c3_ops["A"], c3_ops["M"], c3_ops["J"], C3_DT,
-        num_shifts=C3_SHIFTS, n_adi=C3_ADI,
-    )
+    with tempfile.TemporaryDirectory() as tmp:
+        c3_iv = config3_cylinder.shift_interval(c3_ops, cache_dir=tmp)
+    c3_sched = config3_cylinder.schedule(c3_iv, C3_SHIFTS, C3_ADI)
+    c3_sched12 = config3_cylinder.schedule(c3_iv, C3_MF_SHIFTS, C3_ADI)
     log(f"[7] config-3 setup {t_setup3:.1f} s (numpy element matrices; "
         f"{EARLIER_SETUP_S['config 3']} s with the native element library): "
         f"n={c3_sys64.n} "
         f"n_p={c3_sys64.n_p} m={c3_sys64.m_in}, steady residual "
-        f"{c3_ops['steady_info']['residual']:.2e}; shifts (ARPACK interval) "
-        f"{time.perf_counter() - t0:.1f} s: {np.round(c3_sched[0], 2).tolist()}")
+        f"{c3_ops['steady_info']['residual']:.2e}; shift interval of "
+        f"scripts/config3_cylinder.py [{c3_iv[0]:.4f}, {c3_iv[1]:.2f}] "
+        f"(refinement 1's projected bottom, refinement 2's ARPACK top) in "
+        f"{time.perf_counter() - t0:.1f} s; {C3_SHIFTS} shifts "
+        f"{np.round(c3_sched[0], 2).tolist()}, {C3_MF_SHIFTS} shifts "
+        f"{np.round(c3_sched12[0], 2).tolist()}")
     spmm_head, spmm_err = spmm_phase(c3_ops, dev)
 
     # --- 8. NS stack at the bench shape ---------------------------------
@@ -1876,13 +2181,16 @@ def main() -> None:
     log(f"[12] phase 12 wall {t12:.1f} s")
 
     # --- 9. config 3 ----------------------------------------------------
-    spmm_launches, c3_ks64 = config3_phase(c3_ops, c3_sys64, c3_sched)
+    spmm_launches, c3_ks64, c3_ks32, c3_pit, t_pit = config3_phase(
+        c3_ops, c3_sys64, c3_sched)
 
     # --- 11 (b). config 3 on the matrix-free tier -----------------------
     t0 = time.perf_counter()
     k1_paths, k2_b = matfree_config3_phase(c3_ops, c3_cond, c3_sys64,
-                                           c3_sched, c3_ks64, dev)
+                                           c3_sched12, c3_ks64, c3_ks32,
+                                           c3_pit, t_pit, dev)
     k2_paths.update(k2_b)
+    del c3_pit
     t11 += time.perf_counter() - t0
 
     # --- 10. the driver ---------------------------------------------------
@@ -1898,11 +2206,27 @@ def main() -> None:
         f"{t11:.1f} s, (c) {t_c:.1f} s)")
 
     # --- 13. the config-5 parameter sweep -------------------------------
-    k1_sw, k2_sw, k1_sweep, k2_sw_err = sweep_phase(dev, card)
+    k1_sw, k2_sw, k1_sweep, k2_sw_err = sweep_phase(dev, card, mesh)
     k1_paths.update(k1_sw)
     k2_paths.update(k2_sw)
+    k1_paths["14b sharded_nse_rollout (fused, 1024 x 64, world size 1)"] = (
+        k1_sharded)
     kernel_err = max(kernel_err, k1_sweep.pop("max_abs_err"))
     spmm_err = max(spmm_err, k2_sw_err)
+    torch.distributed.destroy_process_group()
+    store.cleanup()
+
+    # --- 14. config 3XL and the dry run on two ranks --------------------
+    t14 = time.perf_counter()
+    k1_xl, k2_xl, k1_3xl, k2_xl_err = config3xl_phase(dev)
+    k1_paths.update(k1_xl)
+    k2_paths.update(k2_xl)
+    kernel_err = max(kernel_err, k1_3xl.pop("max_abs_err"))
+    spmm_err = max(spmm_err, k2_xl_err)
+    log(f"[14a] phase 14 (a) wall {time.perf_counter() - t14:.1f} s")
+    k1_dry, k2_dry = dryrun_phase()
+    k1_paths.update(k1_dry)
+    k2_paths.update(k2_dry)
 
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
@@ -1923,6 +2247,7 @@ def main() -> None:
             "library_ms": None,
             "at": f"B={S_BATCH}, n={n}, nt={nt}, float32",
             "sweep": k1_sweep,
+            "config3xl": k1_3xl,
         },
         {
             "name": "spmm_tile",

@@ -28,7 +28,10 @@ Layer map (mirrors optconpy_tpu):
     mpc/       closed-loop rollouts: LTI, IMEX step tiers (dense and
                matrix-free), fused, receding horizon, the sweep's
                bucket loop and its Newton-Schulz stepper chain
-    parallel/  the parameter sweep over Re buckets (config 5)
+    parallel/  the parameter sweep over Re buckets (config 5) and the
+               scenario sharding over torch.distributed ranks
+    scripts/   the reference's config-3/3XL and gain-certification
+               scripts as modules (run(device), python -m)
     models/    driven-cavity and cylinder-wake setups
     utils/     config and its hash, checkpoint cache, metrics, VTK,
                runtime precision policy

@@ -1,7 +1,7 @@
 """Parameter-sweep MPC (config 5): thousands of closed-loop scenarios
 across a family of linearizations, e.g. Re in [60, 150].
 
-Counterpart of optconpy_tpu/parallel/param_sweep.py on one process:
+Counterpart of optconpy_tpu/parallel/param_sweep.py:
 R parameter buckets (one linearization, gain and stepper each) x S
 scenarios a bucket. The geometry is shared across the buckets (same
 mesh, different viscosity and steady state), so one convection
@@ -10,6 +10,8 @@ are per bucket; the bucket caches are stacked on a leading R axis
 (NSEStepCache.stack) and the rollout is one time loop over all R x S
 scenarios (mpc/nse_rollout.py nse_sweep_outputs). Buckets of unequal
 real counts are padded to one width and masked out of the statistics.
+sharded_sweep_rollout splits the scenario axis over torch.distributed
+ranks and all-reduces the statistics' partial sums.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from ..mpc.nse_rollout import (
     build_sweep_steppers_ns_chain,
     nse_sweep_outputs,
 )
+from .sharded_mpc import all_reduce_stats
 
 
 def build_sweep_gains_and_caches(
@@ -148,36 +151,77 @@ def build_sweep_gains_and_caches(
 sweep_rollout = nse_sweep_outputs
 
 
-def masked_sweep_stats(ys, u_sq, alpha: float, dt: float, ystar,
-                       mask) -> dict:
-    """Per-bucket statistics of a sweep (the reference's sharded
-    block statistics, parallel/param_sweep.py sharded_sweep_rollout, on
-    one process, where the reductions across scenario shards are the
-    identity).
+def sweep_partials(ys, u_sq, alpha: float, dt: float, ystar, mask):
+    """This block's partial sums of the sweep statistics (the part of
+    the reference's sharded_sweep_rollout before its psum and pmax).
 
     ys (R, S, T+1, p), u_sq (R, S, T); ystar (R, p) each bucket's target
     (zeros: regulation); mask (R, S) 1 for a real scenario and 0 for a
-    padded one. Returns per bucket (R,): mean_cost, the
-    mean over real scenarios of sum_t ||y - y*||^2 dt + alpha sum_t
-    ||u||^2 dt; max_abs_y over real scenarios; tracking_err_T, the mean
-    terminal ||y - y*||; scenarios, the real count. Padded rows are
-    selected out (torch.where), never multiplied by 0, so a padded row
-    that diverged to inf or NaN leaves every statistic as it was.
+    padded one. Returns (sums (3, R): per bucket the cost sum_t ||y -
+    y*||^2 dt + alpha sum_t ||u||^2 dt, the real count and the terminal
+    ||y - y*||, each summed over the block's real scenarios; maxima (R,):
+    max |y| over them). Padded rows are selected out (torch.where),
+    never multiplied by 0, so a padded row that diverged to inf or NaN
+    adds nothing, here or on another rank.
     """
     valid = mask > 0
     dy = ys - ystar[:, None, None, :]
     cost = (dy**2).sum(dim=(2, 3)) * dt + alpha * u_sq.sum(dim=2) * dt
-    counts = mask.to(ys.dtype).sum(dim=1)
-    safe = counts.clamp_min(1.0)
     zero = ys.new_zeros(())
     err_t = torch.where(valid, dy[:, :, -1, :].norm(dim=-1), zero)
     max_y = torch.where(valid[:, :, None, None], ys.abs(), zero)
+    sums = torch.stack([
+        torch.where(valid, cost, zero).sum(dim=1),
+        mask.to(ys.dtype).sum(dim=1),
+        err_t.sum(dim=1),
+    ])
+    return sums, max_y.amax(dim=(1, 2, 3))
+
+
+def finish_sweep_stats(sums, maxima) -> dict:
+    """Per-bucket statistics from (global) partials of sweep_partials:
+    mean_cost and tracking_err_T, the means over the real scenarios;
+    max_abs_y; scenarios, the real count."""
+    safe = sums[1].clamp_min(1.0)
     return {
-        "mean_cost": torch.where(valid, cost, zero).sum(dim=1) / safe,
-        "max_abs_y": max_y.amax(dim=(1, 2, 3)),
-        "tracking_err_T": err_t.sum(dim=1) / safe,
-        "scenarios": counts,
+        "mean_cost": sums[0] / safe,
+        "max_abs_y": maxima,
+        "tracking_err_T": sums[2] / safe,
+        "scenarios": sums[1],
     }
+
+
+def masked_sweep_stats(ys, u_sq, alpha: float, dt: float, ystar,
+                       mask) -> dict:
+    """Per-bucket statistics of a sweep on one process (the reference's
+    sharded block statistics, parallel/param_sweep.py
+    sharded_sweep_rollout, where the reductions across scenario shards
+    are the identity): finish_sweep_stats of sweep_partials. Returns per
+    bucket (R,) mean_cost, max_abs_y, tracking_err_T and scenarios."""
+    return finish_sweep_stats(*sweep_partials(ys, u_sq, alpha, dt, ystar,
+                                              mask))
+
+
+def sharded_sweep_rollout(mesh, sys, conv, cache_stack: NSEStepCache, ks,
+                          v0_local, alpha: float, dt: float, nts: int,
+                          ystar=None, mask_local=None):
+    """The config-5 sweep with the scenario axis sharded over the mesh's
+    ranks (parallel/mesh.py): bucket operands and gains are the same on
+    every rank, v0_local (R, S/world, n) is this rank's block
+    (shard_scenarios(mesh, v0, dim=1)), mask_local its (R, S/world)
+    block of the validity mask (None: every row real); ystar (R, p)
+    (None: zeros). The block's partial statistics are all-reduced (one
+    SUM of costs, counts and terminal errors, one MAX of |y|) before the
+    means. Returns (ys (R, S/world, nts+1, p), this rank's block; the
+    global per-bucket statistics of masked_sweep_stats)."""
+    ys, u_sq, _ = sweep_rollout(sys, conv, cache_stack, ks, v0_local, alpha,
+                                dt, nts)
+    if ystar is None:
+        ystar = ys.new_zeros((ys.shape[0], ys.shape[-1]))
+    if mask_local is None:
+        mask_local = ys.new_ones(ys.shape[:2])
+    sums, maxima = sweep_partials(ys, u_sq, alpha, dt, ystar, mask_local)
+    return ys, finish_sweep_stats(*all_reduce_stats(mesh, sums, maxima))
 
 
 def assign_re_buckets(re_values: np.ndarray, re_buckets: np.ndarray):

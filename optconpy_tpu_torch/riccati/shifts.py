@@ -29,12 +29,16 @@ def spectral_interval(a, m) -> tuple[float, float]:
     else:
         a_s = sp.csc_matrix(a)
         m_s = sp.csc_matrix(m)
-        # Largest-magnitude and smallest-magnitude generalized eigenvalues.
+        # Largest-magnitude and smallest-magnitude generalized eigenvalues,
+        # from a fixed ARPACK start vector so the interval repeats bit for
+        # bit run to run.
+        v0 = np.ones(n)
         lam_big = spla.eigs(
-            a_s, k=1, M=m_s, which="LM", return_eigenvectors=False
+            a_s, k=1, M=m_s, which="LM", return_eigenvectors=False, v0=v0
         )
         lam_small = spla.eigs(
-            a_s, k=1, M=m_s, sigma=0.0, which="LM", return_eigenvectors=False
+            a_s, k=1, M=m_s, sigma=0.0, which="LM", return_eigenvectors=False,
+            v0=v0,
         )
         re = -np.real(np.concatenate([lam_big, lam_small]))
     re = re[re > 0]

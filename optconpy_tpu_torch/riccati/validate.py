@@ -28,6 +28,14 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
 
+def leray_projector(np_ops: dict):
+    """y -> Pi^T y for (n, q) host blocks, from np_ops' M and J: an splu
+    of M, the dense (n_p, n_p) Schur complement J M^-1 J^T and its LU.
+    Build it once per operator set and pass it to dre_step_residual."""
+    return _leray_projector_t(sp.csr_matrix(np_ops["M"]),
+                              sp.csr_matrix(np_ops["J"]))
+
+
 def _leray_projector_t(m_sp, j_sp):
     """Returns y -> Pi^T y for (n, q) blocks (host, sparse factors)."""
     m_lu = spla.splu(sp.csc_matrix(m_sp))
@@ -64,13 +72,14 @@ def _stacked_residual_norm(u_parts, d_signs):
 
 
 def dre_step_residual(np_ops: dict, z_k, k_k, z_next, alpha: float,
-                      dt: float) -> float:
+                      dt: float, pit=None) -> float:
     """Relative projected residual of one backward DRE step's factors.
 
     np_ops: scipy dict with M, A, J, B, C; z_k/k_k: the step's factor
     and gain from dre_backward_sweep (host arrays of any float dtype,
     promoted to f64); z_next: the later-time factor feeding this
-    step's constant term.
+    step's constant term. pit: np_ops' leray_projector, built here when
+    not given (the result is the same bits either way).
     """
     m_sp = sp.csr_matrix(np_ops["M"])
     a_sp = sp.csr_matrix(np_ops["A"])
@@ -86,7 +95,8 @@ def dre_step_residual(np_ops: dict, z_k, k_k, z_next, alpha: float,
         [c.T, (m_sp @ zn) / np.sqrt(dt), np.sqrt(alpha) * k_gain.T],
         axis=1,
     )
-    pit = _leray_projector_t(m_sp, sp.csr_matrix(np_ops["J"]))
+    if pit is None:
+        pit = _leray_projector_t(m_sp, sp.csr_matrix(np_ops["J"]))
     w = pit(w)
     # Pi^T M Z = M Z holds for Z in ker J, but f32 factors only hold
     # J Z to ~1e-6: project M Z too for a clean f64 measurement.

@@ -34,6 +34,12 @@ cavity, card against CPU (1e-8).
 The parameter sweep: the cavity sweep on the 'lu' steppers, card
 against CPU (1e-10); the f32 Newton-Schulz stepper chain certified on
 the card; the convection kernel on the sweep's flattened state.
+
+The sharding and the scripts: the ragged cavity sweep through a
+one-rank NCCL group equals the one-process sweep bit for bit on the
+card and the CPU's statistics to 1e-10; config3xl_cylinder.run at a
+small shape (the cavity, f32) launches both kernels and matches its CPU
+run (gains 1e-4).
 """
 import dataclasses
 from dataclasses import replace
@@ -717,3 +723,79 @@ def test_conv_kernel_at_flattened_sweep_width(card):
     out = conv_kernel.conv_inner(v, fused)
     assert _rel(out, ConvKernel.conv_inner_batch_t(fused, v)) <= 1e-5
     assert torch.equal(out, conv_kernel.conv_inner(v, fused))
+
+
+def test_sharded_sweep_world_one_on_card(gpu, tmp_path):
+    """sharded_sweep_rollout through a one-rank NCCL group on the card,
+    ragged with NaN padded rows: ys and statistics bit-equal to
+    sweep_rollout and masked_sweep_stats on the card, the statistics
+    within 1e-10 of the CPU's."""
+    import torch.distributed as dist
+
+    from optconpy_tpu_torch.parallel import (
+        build_sweep_gains_and_caches,
+        init_multihost,
+        masked_sweep_stats,
+        scenario_mesh,
+        shard_scenarios,
+        sharded_sweep_rollout,
+        sweep_rollout,
+    )
+
+    stats = {}
+    init_multihost(gpu, f"file://{tmp_path / 'store'}", rank=0, world_size=1)
+    try:
+        mesh = scenario_mesh(gpu)
+        for d in (gpu, CPU):
+            setups = _sweep_cavities([1.0, 0.5], d)
+            stack, ks = build_sweep_gains_and_caches(
+                setups, 0.02, 1e-8, dtype=torch.float64, num_shifts=6,
+                n_adi=12, nts_gain=4, r_max=16, solver="lu")
+            conv = ConvKernel.build(setups[0][0]["full"], setups[0][2],
+                                    device=d, dtype=torch.float64)
+            vbars = stack.vbar.cpu().numpy()
+            v0 = vbars[:, None] + 1e-3 * np.random.default_rng(1).standard_normal(
+                (2, 4, vbars.shape[1]))
+            v0[0, 3:] = v0[1, 2:] = np.nan
+            mask = torch.ones((2, 4), dtype=torch.float64)
+            mask[0, 3:] = mask[1, 2:] = 0.0
+            v0, mask = torch.as_tensor(v0).to(d), mask.to(d)
+            ystar = torch.zeros((2, setups[0][1].p_out), dtype=torch.float64,
+                                device=d)
+            ys1, u_sq1, _ = sweep_rollout(setups[0][1], conv, stack, ks, v0,
+                                          1e-8, 0.02, 6)
+            stats[d] = masked_sweep_stats(ys1, u_sq1, 1e-8, 0.02, ystar, mask)
+            if d == gpu:
+                ys, got = sharded_sweep_rollout(
+                    mesh, setups[0][1], conv, stack, ks,
+                    shard_scenarios(mesh, v0, dim=1), 1e-8, 0.02, 6,
+                    ystar=ystar, mask_local=mask)
+                assert torch.equal(ys.nan_to_num(), ys1.nan_to_num())
+                for key in got:
+                    assert torch.equal(got[key], stats[d][key]), key
+    finally:
+        dist.destroy_process_group()
+    for key, ref in stats[CPU].items():
+        assert torch.isfinite(stats[gpu][key]).all()
+        assert _rel(stats[gpu][key].cpu(), ref) <= 1e-10, key
+
+
+def test_config3xl_run_small_on_card_matches_cpu(gpu):
+    """scripts/config3xl_cylinder.run on the cavity (nx=5, f32, FGMRES
+    tol 1e-6) on the card launches both kernels, passes its checks and
+    gives the gains of its CPU run to 1e-4."""
+    from optconpy_tpu_torch.scripts import config3xl_cylinder
+
+    shape = dict(nts_gain=2, nts_roll=3, n_shifts=3, n_adi=6, r_max=8,
+                 s_batch=2, block=64, tol=1e-6)
+    out = {}
+    for d in (gpu, CPU):
+        arrays = {}
+        conv_kernel.launches = spmm_kernel.launches = 0
+        config3xl_cylinder.run(d, ops=_sweep_cavities([1.0], d)[0],
+                               problem="cavity_nx5", arrays=arrays,
+                               log=lambda _: None, **shape)
+        out[d] = (arrays["ks"], conv_kernel.launches, spmm_kernel.launches)
+    assert out[gpu][1] == shape["nts_roll"] + 1 and out[gpu][2] > 0
+    assert out[CPU][1:] == (0, 0)  # the CPU takes the plain versions
+    assert _rel(out[gpu][0].cpu().double(), out[CPU][0].double()) <= 1e-4

@@ -187,7 +187,9 @@ def test_port_never_imports_jax():
         " 'utils.config', 'utils.metrics', 'utils.vtk', 'ops.dense',"
         " 'solvers.shifted', 'fem.heat1d', 'fem.operators', 'solvers.krylov',"
         " 'solvers.matfree', 'fem.device_conv', 'mpc.receding', 'parallel',"
-        " 'parallel.param_sweep'):\n"
+        " 'parallel.param_sweep', 'parallel.mesh', 'parallel.sharded_mpc',"
+        " 'parallel.dryrun', 'scripts', 'scripts.validate_gains',"
+        " 'scripts.config3_cylinder', 'scripts.config3xl_cylinder'):\n"
         "    assert 'optconpy_tpu_torch.' + m in sys.modules, m\n"
         "from optconpy_tpu_torch.solvers.krylov import fgmres\n"
         "from optconpy_tpu_torch.solvers.matfree import SaddleMatfreeCache\n"
@@ -202,6 +204,15 @@ def test_port_never_imports_jax():
         " nse_sweep_outputs)\n"
         "from optconpy_tpu_torch.riccati import ("
         "build_dre_cache_dae_krylov, build_dre_cache_dae_matfree)\n"
+        "from optconpy_tpu_torch.parallel import ("
+        "init_multihost, replicate, scenario_mesh, shard_scenarios,"
+        " sharded_closed_loop, sharded_nse_rollout, sharded_sweep_rollout)\n"
+        "from optconpy_tpu_torch.parallel.dryrun import dryrun_multichip\n"
+        "from optconpy_tpu_torch.riccati.validate import leray_projector\n"
+        "from optconpy_tpu_torch.scripts.config3_cylinder import ("
+        "shift_interval, run)\n"
+        "from optconpy_tpu_torch.scripts.config3xl_cylinder import run\n"
+        "from optconpy_tpu_torch.scripts.validate_gains import certify, run\n"
         "assert 'jax' not in sys.modules\n"
         "assert not any(k.startswith('optconpy_tpu.') or k == 'optconpy_tpu'"
         " for k in sys.modules)\n"
