@@ -96,9 +96,9 @@ the card. Phases:
      input, a (pack, width, dtype) at a time, is held against the plain
      version (<= 1e-5 f32 and 1e-12 f64, repeats bit for bit), and whose
      first K1 input too (<= 1e-5): each variant's s/macro, steady
-     s/macro, breakdown by stage, device idle estimate, perturbation
-     decay (< 1), K1 and K2 launches by macro and stage, peak memory, the
-     refresh residuals or FGMRES records of each macro; fast vs full,
+     s/macro, breakdown by stage, perturbation decay (< 1), K1 and K2
+     launches by macro and stage, peak memory, the refresh residuals or
+     FGMRES records of each macro; fast vs full,
      dense_ns vs full and dense_ns vs fast gains on every macro (<= 1e-4);
      the speedups of dense_ns over the full rebuild;
      dense_ns in f64 for the first 2 macros on the same scenarios: gains
@@ -1474,8 +1474,7 @@ def receding_phase(np_ops, cond, sys64, dev):
             f"{rec['s_per_macro_step']:.4f} s/macro, steady (macros 2-"
             f"{RH_MACROS - 1}) {rec['steady_state_s_per_macro']:.4f} s/macro; "
             f"breakdown { {k: round(v, 4) for k, v in rec['breakdown_s'].items()} }"
-            f" s; device idle estimate {rec['steady_device_idle_frac']:.3f}; "
-            f"stepper refresh on the worker thread {refresh_s:.4f} s a warm "
+            f" s; stepper refresh on the worker thread {refresh_s:.4f} s a warm "
             f"macro; decay dT/d0 {rec['perturbation_decay']:.4f}; peak device "
             f"memory {rec['peak_device_memory_gb']} GB; conv_p2 "
             f"{k1[key]} launches, spmm_tile {k2[key]}")

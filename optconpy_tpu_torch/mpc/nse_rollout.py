@@ -47,6 +47,7 @@ import torch
 
 from ..ops.spmm_kernel import pack_spmm, spmm
 from ..solvers.saddle import SaddleInverse, SaddleLU
+from ..utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -344,19 +345,20 @@ def batched_nse_closed_loop_fused(
     v = v0_batch.T.contiguous()
     vs, us = [v], []
     for k_gain, w_k in zip(ks[:-1], ws[:-1]):
-        uff = ((bt @ w_k) / alpha)[:, None]
-        # pmat v - inv_vv N(v)v, the second GEMM accumulating in place
-        x0 = cache.pmat @ v
-        x0.addmm_(cache.inv_vv, conv.conv_inner_batch_t(v), alpha=-1.0)
-        if feedback == "implicit":
-            x0 += c0 + cache.gmat @ (uff + k_gain @ vbar)
-            s_mat = eye_m + k_gain @ cache.gmat
-            corr = torch.linalg.solve(s_mat, k_gain @ x0)
-            v = x0 - cache.gmat @ corr
-            u = -k_gain @ (v - vbar) + uff
-        else:
-            u = -k_gain @ (v - vbar) + uff
-            v = x0.addmm_(cache.gmat, u).add_(c0)
+        with span("rollout.step"):
+            uff = ((bt @ w_k) / alpha)[:, None]
+            # pmat v - inv_vv N(v)v, the second GEMM accumulating in place
+            x0 = cache.pmat @ v
+            x0.addmm_(cache.inv_vv, conv.conv_inner_batch_t(v), alpha=-1.0)
+            if feedback == "implicit":
+                x0 += c0 + cache.gmat @ (uff + k_gain @ vbar)
+                s_mat = eye_m + k_gain @ cache.gmat
+                corr = torch.linalg.solve(s_mat, k_gain @ x0)
+                v = x0 - cache.gmat @ corr
+                u = -k_gain @ (v - vbar) + uff
+            else:
+                u = -k_gain @ (v - vbar) + uff
+                v = x0.addmm_(cache.gmat, u).add_(c0)
         vs.append(v)
         us.append(u)
     vs = torch.stack(vs)
@@ -498,21 +500,22 @@ def batched_nse_closed_loop(
                 f"dt={dt} disagrees with {type(cache).__name__} build "
                 f"dt={cache.dt}; rebuild the cache for this dt"
             )
-    if isinstance(cache, NSEFusedCache):
-        return batched_nse_closed_loop_fused(
-            sys, conv, cache, ks, ws, v0_batch, alpha, feedback
-        )
-    if not isinstance(cache, (NSEStepCache, NSEMatfreeStepCache)):
+    elif not isinstance(cache, NSEStepCache):
         raise TypeError(
             f"batched_nse_closed_loop takes an NSEFusedCache, an "
             f"NSEStepCache or an NSEMatfreeStepCache, got "
             f"{type(cache).__name__}"
         )
-    vs, us, ys = _nse_loop_columns(
-        sys, conv, cache, ks, ws, v0_batch.T.contiguous(), alpha, dt,
-        feedback,
-    )
-    return vs.permute(2, 0, 1), us.permute(2, 0, 1), ys.permute(2, 0, 1)
+    with span("rollout.call"):
+        if isinstance(cache, NSEFusedCache):
+            return batched_nse_closed_loop_fused(
+                sys, conv, cache, ks, ws, v0_batch, alpha, feedback
+            )
+        vs, us, ys = _nse_loop_columns(
+            sys, conv, cache, ks, ws, v0_batch.T.contiguous(), alpha, dt,
+            feedback,
+        )
+        return vs.permute(2, 0, 1), us.permute(2, 0, 1), ys.permute(2, 0, 1)
 
 
 def batched_nse_closed_loop_matfree(

@@ -8,6 +8,9 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
+from ..utils.profiling import span
+
 
 def tsqr_cholqr2(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """CholeskyQR2 for tall-skinny Z (n, r): two Gram+Cholesky passes.
@@ -49,15 +52,18 @@ def compress(z: torch.Tensor, out_rank: int | None = None,
     value, so truncating to out_rank keeps the dominant subspace; a
     wider out_rank pads with zeros.
     """
-    n, r = z.shape
-    q, rr = tsqr(z, method=method if n >= r else "qr")
-    # On CUDA, cuSOLVER's default SVD driver (Jacobi) left the f32 DRE
-    # gains 1.1e-3 from f64 at the bench shape on an H100; the QR-based
-    # gesvd gave 1.9e-6, and ran faster. The driver exists only on CUDA.
-    driver = "gesvd" if rr.is_cuda else None
-    u, s, _ = torch.linalg.svd(rr, full_matrices=False, driver=driver)
-    s_masked = torch.where(s > rtol * s[0], s, torch.zeros_like(s))
-    zc = q @ (u * s_masked[None, :])
+    with span("lowrank.compress"):
+        n, r = z.shape
+        q, rr = tsqr(z, method=method if n >= r else "qr")
+        # On CUDA, cuSOLVER's default SVD driver (Jacobi) left the f32 DRE
+        # gains 1.1e-3 from f64 at the bench shape on an H100; the QR-based
+        # gesvd gave 1.9e-6, and ran faster. The driver exists only on
+        # CUDA.
+        driver = "gesvd" if rr.is_cuda else None
+        u, s, _ = torch.linalg.svd(rr, full_matrices=False, driver=driver)
+        profiling.host_reads += 1  # the SVD checks its result on the host
+        s_masked = torch.where(s > rtol * s[0], s, torch.zeros_like(s))
+        zc = q @ (u * s_masked[None, :])
     k = zc.shape[1]  # = min(n, r)
     if out_rank is None or out_rank <= k:
         return zc[:, :out_rank]
@@ -75,6 +81,7 @@ def smw_solve(ainv_apply, u: torch.Tensor, v: torch.Tensor,
     aiu = ainv_apply(u)
     r = u.shape[1]
     cap = torch.eye(r, dtype=b.dtype, device=b.device) - v.T @ aiu
+    profiling.host_reads += 1  # linalg.solve checks its result on the host
     return aib + aiu @ torch.linalg.solve(cap, v.T @ aib)
 
 

@@ -14,6 +14,10 @@ from __future__ import annotations
 import torch
 
 from ..ops.sparse import ELL
+from ..utils.profiling import span
+
+# Counter: ADI iterations run (utils/profiling.py lists its metric).
+adi_iterations = 0
 
 
 def lowrank_adi(
@@ -35,16 +39,21 @@ def lowrank_adi(
     sigma_seq: (n_iter,) shift value per iteration, w's dtype/device.
     idx_seq: n_iter host ints, each iteration's shift in `cache`.
     """
+    global adi_iterations
 
     def solve(i, rhs):
         return cache.solve_smw(i, smw_u, smw_v, rhs)
 
-    v = solve(idx_seq[0], w)
-    cols = [torch.sqrt(-2.0 * sigma_seq[0]) * v]
+    adi_iterations += len(idx_seq)
+    with span("adi.iteration"):
+        v = solve(idx_seq[0], w)
+        cols = [torch.sqrt(-2.0 * sigma_seq[0]) * v]
     for it in range(1, len(idx_seq)):
-        mv = mass.matmat(v)
-        v = v - (sigma_seq[it] + sigma_seq[it - 1]) * solve(idx_seq[it], mv)
-        cols.append(torch.sqrt(-2.0 * sigma_seq[it]) * v)
+        with span("adi.iteration"):
+            mv = mass.matmat(v)
+            shift = sigma_seq[it] + sigma_seq[it - 1]
+            v = v - shift * solve(idx_seq[it], mv)
+            cols.append(torch.sqrt(-2.0 * sigma_seq[it]) * v)
     return torch.cat(cols, dim=1)
 
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.lowrank import COMPRESS_RTOL, compress
+from ..utils.profiling import span
 from .lyap_adi import lowrank_adi
 
 
@@ -44,23 +45,24 @@ def newton_adi_are(
     compress_rtol: the relative singular-value cut of each step's
     compression (ops/lowrank.py compress's rtol).
     """
-    n, m = sys.b.shape
-    dtype, device = sys.b.dtype, sys.b.device
-    k = (torch.zeros((m, n), dtype=dtype, device=device) if k0 is None
-         else k0)
-    sqrt_alpha = torch.sqrt(torch.tensor(alpha, dtype=dtype))
-    extra = [] if w_extra is None else [w_extra]
-    z = torch.zeros((n, out_rank), dtype=dtype, device=device)
-    for _ in range(n_newton):
-        z_full = lowrank_adi(
-            cache,
-            smw_u=k.T,
-            smw_v=sys.b,
-            mass=sys.mass,
-            w=torch.cat([sys.c.T, *extra, sqrt_alpha * k.T], dim=1),
-            sigma_seq=sigma_seq,
-            idx_seq=idx_seq,
-        )
-        z = compress(z_full, out_rank=out_rank, rtol=compress_rtol)
-        k = gain_from_factor(z, sys, alpha)
+    with span("newton.solve"):
+        n, m = sys.b.shape
+        dtype, device = sys.b.dtype, sys.b.device
+        k = (torch.zeros((m, n), dtype=dtype, device=device) if k0 is None
+             else k0)
+        sqrt_alpha = torch.sqrt(torch.tensor(alpha, dtype=dtype))
+        extra = [] if w_extra is None else [w_extra]
+        z = torch.zeros((n, out_rank), dtype=dtype, device=device)
+        for _ in range(n_newton):
+            z_full = lowrank_adi(
+                cache,
+                smw_u=k.T,
+                smw_v=sys.b,
+                mass=sys.mass,
+                w=torch.cat([sys.c.T, *extra, sqrt_alpha * k.T], dim=1),
+                sigma_seq=sigma_seq,
+                idx_seq=idx_seq,
+            )
+            z = compress(z_full, out_rank=out_rank, rtol=compress_rtol)
+            k = gain_from_factor(z, sys, alpha)
     return z, k

@@ -13,9 +13,10 @@ a warm-up call and then a timed call with profile=True:
   dense_ns  the Newton-Schulz-refreshed dense DRE stack (the headline).
 
 Reports s/macro with the breakdown {rebuild, dre, probe, stepper_join,
-rollout}, the steady macros' device-idle estimate, the perturbation
-decay (which must be below 1), the fast-vs-full and dense_ns-vs-full
-gain deviations and the speedups over the full rebuild. Run:
+rollout}, the steady macros' s/macro, the perturbation decay (which
+must be below 1), the fast-vs-full and dense_ns-vs-full gain deviations
+and the speedups over the full rebuild. The device's idle time is the
+device trace's to give (utils.profiling.trace). Run:
 
     python -m optconpy_tpu_torch.scripts.bench_receding [--out FILE]
 """
@@ -141,20 +142,12 @@ def run(device, *, ops=None, problem: str | None = None,
         if not d_t < d0:
             raise RuntimeError(f"[{name}] the perturbation does not decay: "
                                f"dT {d_t:.4e} >= d0 {d0:.4e}")
-        steady_tm = tm[STEADY_FROM:]
-        steady = float(np.mean([t["total_s"] for t in steady_tm]))
-        # Device-idle estimate of the steady macros: the device is busy
-        # in the DRE sweep, the relres probe and the rollout; the stepper
-        # refresh rides a worker thread.
-        busy = float(np.mean([t["dre_s"] + t["probe_s"] + t["rollout_s"]
-                              for t in steady_tm]))
+        steady = float(np.mean([t["total_s"] for t in tm[STEADY_FROM:]]))
         rec = {
             "s_per_macro_step": mean["total"],
             "steady_state_s_per_macro": steady,
             "macro_steps_per_s": 1.0 / mean["total"],
             "breakdown_s": {k: mean[k] for k in STAGES},
-            "steady_device_idle_frac": max(0.0, 1.0 - busy / max(steady,
-                                                                 1e-9)),
             "perturbation_decay": d_t / d0,
             "wall_total_s": t_total,
             "warmup_macros": n_warm,

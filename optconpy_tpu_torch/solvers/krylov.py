@@ -31,10 +31,18 @@ import torch
 
 from ..ops.dense import host_lu_factor, lu_apply, to_host64
 from ..ops.lowrank import smw_solve
+from ..utils import profiling
+from ..utils.profiling import span
 from .saddle import _saddle64
 
 TINY = 1e-30  # floor of a norm used as a divisor
 BREAKDOWN_EPS = 64.0  # breakdown and truncation threshold, in units of eps
+
+# Counters (utils/profiling.py names their metrics): fgmres calls, their
+# restart cycles, the calls returned above tol at max_cycles.
+fgmres_solves = 0
+fgmres_cycles = 0
+fgmres_capped = 0
 
 
 def _dotcols(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -101,23 +109,24 @@ def gmres(matvec, b: torch.Tensor, x0: torch.Tensor | None = None,
     zs = torch.empty((m, n, q), dtype=dtype, device=device)
     h = torch.zeros((m + 1, m, q), dtype=dtype, device=device)
     for j in range(m):
-        zs[j] = pc(vs[j])
-        w = matvec(zs[j])
-        # Modified Gram-Schmidt against v_0..v_j (w -= h_ij v_i in one
-        # kernel; the column of H is stored once).
-        hcol = []
-        for i in range(j + 1):
-            hcol.append(_dotcols(vs[i], w))
-            w = w.addcmul(vs[i], hcol[-1], value=-1.0)
-        h[: j + 1, j] = torch.stack(hcol)
-        hnorm = _dotcols(w, w).sqrt()
-        # A converged column's w must become a ZERO basis vector (and a
-        # zero H entry), not w/eps noise. The threshold sits above the
-        # dtype's MGS roundoff floor (~eps |w| before orthogonalization):
-        # an absolute 1e-12 never fires in f32, and w / 1e-30 -> inf.
-        breakdown = hnorm < BREAKDOWN_EPS * eps * safe_beta
-        h[j + 1, j] = torch.where(breakdown, 0.0, hnorm)
-        vs[j + 1] = torch.where(breakdown, 0.0, w / hnorm.clamp_min(TINY))
+        with span("krylov.arnoldi_step"):
+            zs[j] = pc(vs[j])
+            w = matvec(zs[j])
+            # Modified Gram-Schmidt against v_0..v_j (w -= h_ij v_i in one
+            # kernel; the column of H is stored once).
+            hcol = []
+            for i in range(j + 1):
+                hcol.append(_dotcols(vs[i], w))
+                w = w.addcmul(vs[i], hcol[-1], value=-1.0)
+            h[: j + 1, j] = torch.stack(hcol)
+            hnorm = _dotcols(w, w).sqrt()
+            # A converged column's w must become a ZERO basis vector (and a
+            # zero H entry), not w/eps noise. The threshold sits above the
+            # dtype's MGS roundoff floor (~eps |w| before orthogonalization):
+            # an absolute 1e-12 never fires in f32, and w / 1e-30 -> inf.
+            breakdown = hnorm < BREAKDOWN_EPS * eps * safe_beta
+            h[j + 1, j] = torch.where(breakdown, 0.0, hnorm)
+            vs[j + 1] = torch.where(breakdown, 0.0, w / hnorm.clamp_min(TINY))
 
     # min ||beta e1 - H y|| per column by a thin QR of H (q, m+1, m):
     # normal equations would square its condition number.
@@ -156,6 +165,7 @@ def fgmres(matvec, b: torch.Tensor, precond=None, m: int = 30,
     relative residual as a Python float. Raises RuntimeError when the
     residual of a cycle is not finite.
     """
+    global fgmres_solves, fgmres_cycles, fgmres_capped
     b, squeeze = _columns(b)
     bnorm = _dotcols(b, b).sqrt()
     safe = bnorm.clamp_min(TINY)
@@ -164,17 +174,23 @@ def fgmres(matvec, b: torch.Tensor, precond=None, m: int = 30,
         x = torch.zeros_like(b)
     else:
         x = torch.where(bnorm > TINY, _columns(x0)[0] / safe, 0.0)
+    fgmres_solves += 1
     rel = math.inf
     cycle = 0
     while cycle < max_cycles and rel > tol:
-        x, res = gmres(matvec, bs, x0=x, n_iter=m, precond=precond)
-        rel = float(res.max())  # unit columns: res is the relative residual
+        with span("krylov.fgmres_cycle"):
+            x, res = gmres(matvec, bs, x0=x, n_iter=m, precond=precond)
+            rel = float(res.max())  # unit columns: the relative residual
         cycle += 1
+        fgmres_cycles += 1
+        profiling.host_reads += 1
         if not math.isfinite(rel):
             raise RuntimeError(
                 f"fgmres: relative residual {rel} after cycle {cycle} of "
                 f"{max_cycles} is not finite"
             )
+    if rel > tol:
+        fgmres_capped += 1
     x = x * safe
     return (x[:, 0], rel) if squeeze else (x, rel)
 

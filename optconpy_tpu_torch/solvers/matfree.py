@@ -40,8 +40,14 @@ import torch
 
 from ..ops.lowrank import smw_solve
 from ..ops.spmm_kernel import pack_spmm, spmm
+from ..utils.profiling import span
 from .krylov import fgmres
-from .ns_inverse import SaddleOpsPack, _apply_big, ordered_operators
+from .ns_inverse import (
+    SaddleOpsPack,
+    _apply_big,
+    count_sparse,
+    ordered_operators,
+)
 
 
 def _block_jacobi_inverses(f_sp, block: int, n_pad: int) -> np.ndarray:
@@ -238,13 +244,16 @@ class SaddleMatfreeCache:
         n = self.n
 
         def kop(xb):
-            return _apply_big(self.ops, s_i, xb)
+            with span("matfree.apply"):
+                return _apply_big(self.ops, s_i, xb)
 
         def prec(xb):
-            # S^-1 ~ -s L_p^-1 (signed: s is the total mass coefficient)
-            p = -sc_i * (self.lp_inv @ xb[n:])
-            v = self._bj_apply(bj_i, xb[:n] - spmm(self.ops.jt, p))
-            return torch.cat([v, p])
+            with span("matfree.precond"):
+                # S^-1 ~ -s L_p^-1 (signed: s is the total mass coefficient)
+                p = -sc_i * (self.lp_inv @ xb[n:])
+                count_sparse(self.ops.jt, p)
+                v = self._bj_apply(bj_i, xb[:n] - spmm(self.ops.jt, p))
+                return torch.cat([v, p])
 
         x, rel = fgmres(
             kop, torch.cat([rv, rp]), precond=prec, m=self.m_krylov,
@@ -263,9 +272,10 @@ class SaddleMatfreeCache:
         squeeze = rhs.ndim == 1
         if squeeze:
             rhs = rhs[:, None]
-        rp = rhs.new_zeros((self.n_p, rhs.shape[1]))
-        v, _, rel = self._solve_perm(i, rhs[self.perm], rp)
-        v = v[self.iperm]
+        with span("matfree.solve"):
+            rp = rhs.new_zeros((self.n_p, rhs.shape[1]))
+            v, _, rel = self._solve_perm(i, rhs[self.perm], rp)
+            v = v[self.iperm]
         return (v[:, 0] if squeeze else v), rel
 
     def solve(self, i: int, rhs: torch.Tensor) -> torch.Tensor:
@@ -294,14 +304,15 @@ class SaddleMatfreeCache:
         squeeze = rhs_v.ndim == 1
         if squeeze:
             rhs_v, rhs_p = rhs_v[:, None], rhs_p[:, None]
-        x0_perm = None
-        if x0 is not None:
-            v0, p0 = x0
-            if squeeze:
-                v0, p0 = v0[:, None], p0[:, None]
-            x0_perm = torch.cat([v0[self.perm], p0[self.p_perm]])
-        v, p, _ = self._solve_perm(
-            i, rhs_v[self.perm], rhs_p[self.p_perm], x0=x0_perm
-        )
-        v, p = v[self.iperm], p[self.p_iperm]
+        with span("matfree.solve"):
+            x0_perm = None
+            if x0 is not None:
+                v0, p0 = x0
+                if squeeze:
+                    v0, p0 = v0[:, None], p0[:, None]
+                x0_perm = torch.cat([v0[self.perm], p0[self.p_perm]])
+            v, p, _ = self._solve_perm(
+                i, rhs_v[self.perm], rhs_p[self.p_perm], x0=x0_perm
+            )
+            v, p = v[self.iperm], p[self.p_iperm]
         return (v[:, 0], p[:, 0]) if squeeze else (v, p)

@@ -31,6 +31,7 @@ same probe and rebuilt from the ladder where it misses.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 import time
@@ -58,6 +59,17 @@ N_PROBES = 8
 SEED = 17
 REFRESH_SEED = 3  # probes of NSShiftStack.refresh (the reference's key)
 CERTIFY_ROW_CHUNK = 2048  # rows of X cast to float64 at a time
+
+# Counter: the matrix-free saddle's sparse products by (rows, cols, nnz,
+# width, bytes an element of X), counted where the algorithm asks for
+# them (_apply_big and the matrix-free preconditioner, count_sparse),
+# whichever kernel serves them (utils/profiling.py lists its metric).
+sparse_calls = collections.Counter()
+
+
+def count_sparse(a: SpmmPack, x: torch.Tensor) -> None:
+    """Count the product a @ x in sparse_calls."""
+    sparse_calls[(*a.shape, a.nnz, x.shape[1], x.element_size())] += 1
 
 
 @dataclass(frozen=True)
@@ -125,6 +137,8 @@ def _apply_big(pack: SaddleOpsPack, s: float, x):
     """[[At + s M, J^T], [J, 0]] @ X for X (n + n_p, q)."""
     n = pack.n
     xv, xp = x[:n], x[n:]
+    for a, xa in ((pack.at, xv), (pack.m, xv), (pack.jt, xp), (pack.j, xv)):
+        count_sparse(a, xa)
     out = torch.empty_like(x)
     top = out[:n]
     torch.add(spmm(pack.at, xv), spmm(pack.m, xv), alpha=s, out=top)

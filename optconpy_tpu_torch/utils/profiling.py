@@ -1,4 +1,5 @@
-"""Tracing and section timing, on torch.profiler and synchronized clocks.
+"""Tracing, section timing, spans and counters, on torch.profiler and
+synchronized clocks.
 
 Counterpart of optconpy_tpu/utils/profiling.py: `trace` captures a
 torch.profiler trace of a block (the host's ops, and the card's kernels
@@ -6,14 +7,106 @@ when one is present) and writes it as a Chrome trace (open it with
 Perfetto or chrome://tracing); `SectionTimer` accumulates named wall
 times, synchronizing the card before it reads the clock (a CUDA launch
 returns before its kernel ends).
+
+`span(name)` names a stretch of the program's own work on the
+profiler's clock: while a torch profiler records host operations it is
+one kineto event beside the kernels (and in `trace`'s Chrome traces);
+with no profiler running it is one shared null context, after a single
+check. A span never synchronizes or reads the device. The names are
+`SPANS`, `<layer>.<what>`:
+
+  newton.solve          riccati/newton_kleinman.py::newton_adi_are, a
+                        call (one DRE step)
+  adi.iteration         riccati/lyap_adi.py::lowrank_adi, an iteration
+                        (both SMW solves)
+  matfree.solve         solvers/matfree.py::SaddleMatfreeCache, an
+                        FGMRES solve with its gathers (solve_relres,
+                        apply_full)
+  krylov.fgmres_cycle   solvers/krylov.py::fgmres, a restart cycle
+                        through its residual read
+  krylov.arnoldi_step   solvers/krylov.py::gmres, a basis vector with
+                        its Gram-Schmidt loop
+  matfree.apply         the matrix-free saddle apply of a solve
+  matfree.precond       its block-Jacobi and pressure-Schur
+                        preconditioner
+  lowrank.compress      ops/lowrank.py::compress, a call
+  rollout.call          mpc/nse_rollout.py::batched_nse_closed_loop, a
+                        call (one control step at B=1)
+  rollout.step          a time step of the fused closed loop
+
+Counters, module-level integers beside the code, always on (the
+benchmark's readers, cudabench/metrics/, take ratios of them):
+
+  solvers/krylov.py
+    fgmres_solves, fgmres_cycles   krylov.fgmres_cycles_per_solve.gains
+    fgmres_capped (solves returned krylov.fgmres_capped_share.gains
+      above tol at max_cycles)
+  riccati/lyap_adi.py
+    adi_iterations                 krylov.host_reads_per_adi.gains
+  utils/profiling.py
+    host_reads                     krylov.host_reads_per_adi.gains
+  solvers/ns_inverse.py
+    sparse_calls, a Counter of the matrix-free saddle's sparse products
+      by (rows, cols, nnz, width, bytes an element), counted where the
+      algorithm asks for them (ns_inverse._apply_big and the
+      preconditioner's J^T product), whichever kernel serves them
+                                   k2_spmm.roofline_share.gains
+  ops/spmm_kernel.py launches, ops/conv_kernel.py launches
+                                   the kernels' launches (K2's and K1's
+                                   rooflines)
+
+host_reads counts a device-to-host read where the read is made, in the
+three functions that make the matrix-free DRE path's reads on CUDA:
+solvers/krylov.py::fgmres (its residual, once a restart cycle), and
+ops/lowrank.py's smw_solve (torch.linalg.solve checks the capacitance
+solve on the host) and compress (the SVD checks its result on the
+host). They count whichever path calls them, on any device; the DRE
+benchmark cell runs the matrix-free path alone.
 """
 from __future__ import annotations
 
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+
+SPANS = (
+    "newton.solve",
+    "adi.iteration",
+    "matfree.solve",
+    "krylov.fgmres_cycle",
+    "krylov.arnoldi_step",
+    "matfree.apply",
+    "matfree.precond",
+    "lowrank.compress",
+    "rollout.call",
+    "rollout.step",
+)
+_KNOWN = frozenset(SPANS)
+_NULL = nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+
+host_reads = 0  # counter: see the module's docstring
+
+
+def span(name: str):
+    """A context manager naming the enclosed work `name`, one of SPANS
+    (else ValueError).
+
+    With no profiler running, the shared null context. Under a profiler,
+    a RecordFunctionFast event, which the profiler records only when it
+    records host operations: on an H100 machine's host (torch 2.11) it
+    cost 1.0 us under a device-only profile and 1.5 us under a host and
+    device one, against 10.2 and 10.8 us for
+    torch.profiler.record_function.
+    """
+    if name not in _KNOWN:
+        raise ValueError(f"unknown span {name!r}; the spans are {SPANS}")
+    if not _profiling():
+        return _NULL
+    return _RecordFunctionFast(name)
 
 
 @contextmanager

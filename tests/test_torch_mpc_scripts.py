@@ -10,7 +10,7 @@ script's main() runs here: both write the reference's records.
     vs 1e-8; the reference packs with kind="ell": its windowed Pallas
     SpMM accumulates in f32), the gain deviations vs those recomputed
     from the reference's ks (within twice the ks bound), the record's
-    keys against RECEDING_r05.json's;
+    keys against RECEDING_r05.json's (but its device-idle estimate);
   * sweep_config5.run on the cavity buckets nu 1.0 and 0.5 (nx=5; 12
     drawn scenarios padded to 8, 6 steps, 2 DRE steps): its statistics
     vs the reference's build_sweep_gains_and_caches and
@@ -85,6 +85,12 @@ def _cavity(nx, nu=1.0):
     return (j_ops, j_sys.astype(jnp.float64), j_cond), (t_ops, t_sys, t_cond)
 
 
+# Keys of the reference's records the port leaves out on purpose: the
+# device's idle time is the device trace's to give (utils.profiling.trace
+# and the spans it records), not an estimate from host stage clocks.
+RECORD_DROPPED = {"steady_device_idle_frac"}
+
+
 def _record_keys(name):
     with open(ROOT / name) as fh:
         return set(json.load(fh))
@@ -124,14 +130,17 @@ def test_bench_receding_variant_matches_reference(receding, variant):
 
 
 def test_bench_receding_record_and_gain_deviations(receding):
-    """The record has every key of the reference's RECEDING_r05.json, and
-    its gain deviations are the reference's recomputed from its ks."""
+    """The record has every key of the reference's RECEDING_r05.json but
+    RECORD_DROPPED, and its gain deviations are the reference's
+    recomputed from its ks."""
     out, _, ref = receding
     with open(ROOT / "RECEDING_r05.json") as fh:
         record = json.load(fh)
-    assert set(record) <= set(out)
+    assert set(record) - RECORD_DROPPED <= set(out)
+    assert not RECORD_DROPPED & set(out)
     for key in ("matfree_refresh_variant", "full_rebuild_variant"):
-        assert set(record[key]) <= set(out[key]), key
+        assert set(record[key]) - RECORD_DROPPED <= set(out[key]), key
+        assert not RECORD_DROPPED & set(out[key]), key
     ks = {k: np.asarray(v["ks"]) for k, v in ref.items()}
     for fast, key in (("fast", "gain_rel_dev_fast_vs_full"),
                       ("dense_ns", "gain_rel_dev_dense_ns_vs_full")):
