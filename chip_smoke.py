@@ -30,7 +30,11 @@ the card. Phases:
   7. SpMM kernel vs its plain torch version on the config-3 NS pencil
      (Atil^T, M, J, J^T) at B = 17,396, 8 and 1, f32 (<= 1e-5) and f64
      (<= 1e-12), timed beside torch.sparse.mm, the bound and the
-     replaced kernel's time;
+     replaced kernel's time; (b) the Arnoldi step's MGS kernel vs its
+     plain loop over 30-step cycles at config 3's saddle (n = 17,396),
+     q = 4, 46 and 1,024 in f32 (<= 2e-5) and 46 in f64 (<= 1e-12), and
+     at the bench shape's saddle q = 3 in f64 (phase 11 (a)'s stepper),
+     a cycle's time beside the plain loop's and its bytes bound;
   8. the f32 NS stack at the bench shape's 6 shifts through the SpMM
      kernel: (a) the reference's ladder (build_dre_cache_dae_ns); (b)
      build_inverse_stack_ns with keep_full=True on the ladder NS_LADDER
@@ -214,6 +218,9 @@ C3_CERTIFY_F32 = 5e-4  # the reference's certify_tol
 FEAS_TOL = 1e-5  # |J Z| / |Z| of the f32 factors (the reference's bound)
 DRE_RES_TOL = 1e-2  # projected DRE step residual (the reference's bound)
 SPMM_TOL = {"float32": 1e-5, "float64": 1e-12}  # kernel vs plain, relative
+# Phase 7 (b): the MGS kernel vs its plain loop, relative; the sums run in
+# another order (by block, then across blocks), so rounding only.
+MGS_TOL = {"float32": 2e-5, "float64": 1e-12}
 # Phase 8 (b): a Newton-Schulz ladder other than the reference's defaults
 # (rung ratio 1.6, 3 passes a rung, 1 at a shift, M^-1 to 1e-2).
 NS_LADDER = dict(rung_ratio=2.0, passes_per_rung=4, extra_passes_at_shift=2,
@@ -544,6 +551,81 @@ def spmm_phase(c3_ops, dev):
         del pack
     head["at_matfree_widths"] = narrow
     return head, max_abs
+
+
+def mgs_phase(n_c3: int, n_bench: int, dev):
+    """Phase 7 (b): the Arnoldi step's MGS kernel vs its plain version
+    over whole 30-step cycles, every step's H column and new basis vector
+    (<= MGS_TOL), timed with CUDA events beside its bytes bound: each
+    basis vector read once, w read once and v_{j+1} written once a step.
+    At config 3's matrix-free saddle (n_c3) the gains cell's widths q = 4
+    and 46 (float32; and float64 at 46) and q = 1,024 (float32, the
+    streamed parameter set); at the bench shape's saddle (n_bench) phase
+    11 (a)'s matrix-free stepper, q = MF_STEP_S in float64. Returns the
+    JSON fields of q = 46 in float32 (with the others under "widths")."""
+    import torch
+
+    from optconpy_tpu_torch.ops import arnoldi_kernel as ak
+    from optconpy_tpu_torch.solvers import krylov
+
+    m = 30
+    gen = torch.Generator(dev).manual_seed(SEED)
+    out = {}
+    for n, q, dtype in ((n_c3, 4, torch.float32), (n_c3, 46, torch.float32),
+                        (n_c3, 46, torch.float64),
+                        (n_c3, 1024, torch.float32),
+                        (n_bench, MF_STEP_S, torch.float64)):
+        dname = str(dtype).removeprefix("torch.")
+        fac = krylov.BREAKDOWN_EPS * torch.finfo(dtype).eps
+        r0 = torch.randn((n, q), generator=gen, dtype=dtype, device=dev)
+        sb = r0.norm(dim=0).clamp_min(krylov.TINY)
+        vs = torch.zeros((m + 1, n, q), dtype=dtype, device=dev)
+        vs[0] = r0 / sb
+        h = torch.zeros((m + 1, m, q), dtype=dtype, device=dev)
+        ws = []
+        for j in range(m):  # a Krylov basis of a banded nonsymmetric operator
+            w = 2.5 * vs[j]
+            w[1:] -= vs[j, :-1]
+            w[:-1] -= 0.5 * vs[j, 1:]
+            ws.append(w)
+            ak.mgs_step_plain(vs, w, h, j, sb, fac)
+        err = 0.0
+        vk, hk = vs.clone(), h.clone()
+        for j in range(m):
+            ak.mgs_step(vk, ws[j], hk, j, sb, fac)
+            torch.cuda.synchronize()
+            err = max(err, rel_err(hk[:, j], h[:, j]),
+                      rel_err(vk[j + 1], vs[j + 1]))
+            vk[j + 1] = vs[j + 1]
+            hk[:, j] = h[:, j]
+        check(err <= MGS_TOL[dname],
+              f"mgs_step n={n} q={q} {dname}: {err:.2e}")
+
+        def cycle(step):
+            for j in range(m):
+                step(vk, ws[j], hk, j, sb, fac)
+
+        k_ms = event_ms(lambda: cycle(ak.mgs_step), 5)
+        p_ms = event_ms(lambda: cycle(ak.mgs_step_plain), 3)
+        nbytes = sum(j + 3 for j in range(m)) * n * q * vs.element_size()
+        flops = sum(4 * (j + 1) + 3 for j in range(m)) * n * q
+        bnd = bound_ms(nbytes, flops, dname)
+        grid, smem, onchip, vec = ak.plan(dev.index or 0, dtype, n, q)
+        log(f"[7b] mgs_step n={n} q={q} {dname} (grid {grid}, {smem} B "
+            f"shared, runs of {vec}, {'on chip' if onchip else 'streamed'}): "
+            f"rel err "
+            f"{err:.2e} (tol {MGS_TOL[dname]:g}); a 30-step cycle: kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}) = {bnd[0] / k_ms:.0%} of the kernel's time")
+        out[f"n={n} q={q} {dname}"] = {
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "onchip": onchip, "max_rel_err": err,
+        }
+        del vs, vk, h, hk, ws
+    head = dict(out.pop(f"n={n_c3} q=46 float32"))
+    head["at"] = f"a 30-step Arnoldi cycle, n={n_c3}, q=46, float32"
+    head["widths"] = out
+    return head
 
 
 def bench_ns_phase(sys32, cache64, ks64, sig, sseq, iseq, pencil):
@@ -916,7 +998,8 @@ def driver_phase(v0_np, dev):
     t_c = time.perf_counter()
     conv_kernel.launches = 0
     spmm_kernel.launches = 0
-    got, met_mf, _ = run(mf_cfg, None, dev)
+    with mgs_counted("11c cavity driver matfree (f64)"):
+        got, met_mf, _ = run(mf_cfg, None, dev)
     mf_launches = spmm_kernel.launches
     per_stage = met_mf.launches
     check(per_stage["dre_backward_sweep"][1] > 0
@@ -1111,7 +1194,8 @@ def matfree_bench_phase(np_ops, cond, sys64, cache64, sched, dev) -> dict:
         idx_seq=[int(i) for i in iseq[:MF_ADI_ITERS]],
     )
     spmm_kernel.launches = 0
-    z_mf, t_adi = sync_time(lambda: lowrank_adi(mf, **args))
+    with mgs_counted("11a matfree ADI (bench, f64)"):
+        z_mf, t_adi = sync_time(lambda: lowrank_adi(mf, **args))
     launches["11a matfree ADI (bench, f64)"] = spmm_kernel.launches
     z_inv = lowrank_adi(cache64, **args)
     adi_dev = rel_err(z_mf, z_inv)
@@ -1153,8 +1237,9 @@ def matfree_bench_phase(np_ops, cond, sys64, cache64, sched, dev) -> dict:
                                            ALPHA, DT, feedback=feedback)
 
         spmm_kernel.launches = 0
-        got, t_mf = sync_time(lambda: roll(mfs))
         key = f"11a matfree stepper {feedback} (bench, f64)"
+        with mgs_counted(key):
+            got, t_mf = sync_time(lambda: roll(mfs))
         launches[key] = spmm_kernel.launches
         ref, t_lu = sync_time(lambda: roll(lu))
         devs = {name: rel_err(a, b) for name, a, b in zip("vuy", got, ref)}
@@ -1201,10 +1286,11 @@ def matfree_config3_phase(c3_ops, c3_cond, c3_sys64, sched12, ks64, ks_ns32,
         sys32, C3_DT, sig, block=MF_BLOCK, max_cycles=C3_DRE_CYCLES,
         tol=C3_FGMRES_TOL,
     ))
-    with counted_launches(c3, "dre_backward_sweep") as sweeps:
+    key = f"11b config3_script matfree DRE sweep (f32, {len(sig)} shifts)"
+    with counted_launches(c3, "dre_backward_sweep") as sweeps, \
+            mgs_counted(key):
         zs, ks, t_sweep, warm = c3.timed_sweeps(
             sys32, mf, sched12, warm=C3_MF_WARM, nts=C3_NTS, r_max=C3_R_MAX)
-    key = f"11b config3_script matfree DRE sweep (f32, {len(sig)} shifts)"
     k2[key] = sweeps[0][1]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     adi_iters = C3_NTS * C3_ADI
@@ -1286,7 +1372,9 @@ def matfree_config3_phase(c3_ops, c3_cond, c3_sys64, sched12, ks64, ks_ns32,
         max_cycles=C3_ROLL_CYCLES, tol=C3_FGMRES_TOL,
     ))
     v0 = c3.rollout_v0(stepper, C3_ROLL_S, np.random.default_rng(SEED))
-    with counted_launches(c3, "batched_nse_closed_loop") as rolls:
+    with counted_launches(c3, "batched_nse_closed_loop") as rolls, \
+            mgs_counted("11b config3_script rollouts, controlled and "
+                        "uncontrolled (f32)"):
         roll = c3.energy_ratio(sys32, conv, stepper, ks_ns32[0], v0,
                                nts=C3_ROLL_NTS)
     for (name, short), (l1, l2) in zip((("controlled", "c"),
@@ -1433,8 +1521,9 @@ def receding_phase(np_ops, cond, sys64, dev):
             return out
         conv_kernel.launches = 0
         spmm_kernel.launches = 0
-        out = receding_horizon_mpc(*args, n_macro=n_macro, profile=True)
         key = f"12 receding {name} (config 4, f32, {n_macro} macros)"
+        with mgs_counted(key, expect=args[4].solver == "matfree"):
+            out = receding_horizon_mpc(*args, n_macro=n_macro, profile=True)
         k1[key], k2[key] = conv_kernel.launches, spmm_kernel.launches
         return out
 
@@ -1622,6 +1711,25 @@ def counted_launches(module, name: str):
         setattr(module, name, fn)
 
 
+# The MGS kernel's launches (ops/arnoldi_kernel.py) on each matrix-free
+# path, counted with the counter reset just before the path's run.
+MGS_PATHS: dict = {}
+
+
+@contextmanager
+def mgs_counted(label: str, expect: bool = True):
+    """Count the Arnoldi step kernel's launches inside the block into
+    MGS_PATHS[label], from zero; with `expect`, check the path launched
+    it (a matrix-free path solves by gmres)."""
+    from optconpy_tpu_torch.ops import arnoldi_kernel
+
+    arnoldi_kernel.launches = 0
+    yield
+    MGS_PATHS[label] = arnoldi_kernel.launches
+    if expect:
+        check(MGS_PATHS[label] > 0, f"mgs_step launched in {label}")
+
+
 def check_conv_input(label: str, x, conv) -> dict:
     """K1 vs its plain version (the slot sums) on a path's own input X
     and evaluator: KERNEL_TOL relative and a repeat bit for bit, timed
@@ -1723,7 +1831,9 @@ def sweep_phase(dev, card: str, mesh):
         with recorded_spmm_inputs() as seen, \
                 counted_launches(riccati, "dre_backward_sweep") as dre_calls, \
                 counted_launches(param_sweep,
-                                 "build_sweep_steppers_ns_chain") as chain_calls:
+                                 "build_sweep_steppers_ns_chain") as chain_calls, \
+                mgs_counted(f"13 sweep gains (matfree DRE, {SW_BUCKETS} "
+                            f"buckets)"):
             out, t_run = sync_time(lambda: sc.run(
                 dev, re_range=SW_RE, buckets=SW_BUCKETS, s_total=SW_SCENARIOS,
                 pad=SW_PAD, nts=SW_NTS, nts_gain=SW_GAINS["nts_gain"],
@@ -1979,7 +2089,9 @@ def config3xl_phase(dev):
     spmm_kernel.launches = 0
     with recorded_spmm_inputs() as seen, recorded_conv_input() as xs, \
             counted_launches(xl, "dre_backward_sweep") as sweeps, \
-            counted_launches(xl, "batched_nse_closed_loop") as rolls:
+            counted_launches(xl, "batched_nse_closed_loop") as rolls, \
+            mgs_counted("14a config3xl_cylinder (DRE sweep, probes, stepper "
+                        "and rollout)"):
         out = xl.run(dev, log=lambda msg: log(f"      {msg}"), arrays=arrays)
     k1_all, k2_all = conv_kernel.launches, spmm_kernel.launches
     t_run = time.perf_counter() - t0
@@ -2384,7 +2496,9 @@ def wake_are_phase(dev, timer) -> tuple[dict, float]:
             spmm_kernel.launches = 0
             with timed_calls(are, "newton_adi_are", stage), \
                     recorded_spmm_inputs() as seen, \
-                    timer.section(f"15b ARE {label}"):
+                    timer.section(f"15b ARE {label}"), \
+                    mgs_counted(f"15b ARE {label} (wake Re=60)",
+                                expect=cache == "matfree"):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 z, k, info = solve_are_stabilized(
@@ -2848,6 +2962,7 @@ def main() -> None:
         f"{np.round(c3_sched[0], 2).tolist()}, {C3_MF_SHIFTS} shifts "
         f"{np.round(c3_sched12[0], 2).tolist()}")
     spmm_head, spmm_err = spmm_phase(c3_ops, dev)
+    mgs_head = mgs_phase(c3_sys64.n + c3_sys64.n_p, sys64.n + sys64.n_p, dev)
 
     # --- 8. NS stack at the bench shape ---------------------------------
     k2_ns, k2_ns_err = bench_ns_phase(sys32, cache64, ks64, sig, sseq, iseq,
@@ -2969,6 +3084,18 @@ def main() -> None:
             "launches_by_path": k2_paths,
             "max_abs_err": spmm_err,
             **spmm_head,
+        },
+        {
+            "name": "mgs_step",
+            "route": "cuda",
+            "source": "optconpy_tpu_torch/csrc/mgs_step.cu",
+            "replaces": None,
+            "tpu_path": "optconpy_tpu/solvers/krylov.py:119-127 (lax.fori_loop)",
+            "launches": MGS_PATHS[
+                f"11b config3_script matfree DRE sweep (f32, {C3_MF_SHIFTS} "
+                f"shifts)"],
+            "launches_by_path": MGS_PATHS,
+            **mgs_head,
         },
     ]}))
     log(card)

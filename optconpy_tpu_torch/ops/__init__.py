@@ -1,5 +1,6 @@
 """ops/ — ELL sparse operator, low-rank algebra, dense factorization
-caches, the CUDA kernels (convection, SpMM) and their build."""
+caches, the CUDA kernels (convection, SpMM, the Arnoldi step's MGS) and
+their build."""
 from .dense import CholeskySolver, LUSolver
 from .lowrank import (
     append_columns,

@@ -7,7 +7,9 @@ so a (n, q) solve costs the same matvec count as one column.
 
   * cg: conjugate gradients for SPD systems, fixed iteration count;
   * gmres: one cycle of right-preconditioned GMRES(m) that stores the
-    preconditioned basis (so it is flexible);
+    preconditioned basis (so it is flexible); each Arnoldi step's
+    modified Gram-Schmidt goes through ops/arnoldi_kernel.py::mgs_step,
+    one kernel launch on the card and the same loop on the CPU;
   * fgmres: restarted gmres cycles until every column's relative
     residual is below tol. One host read of the residual per cycle; a
     residual that is not finite raises instead of ending the loop;
@@ -29,6 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..ops.arnoldi_kernel import mgs_step
 from ..ops.dense import host_lu_factor, lu_apply, to_host64
 from ..ops.lowrank import smw_solve
 from ..utils import profiling
@@ -111,22 +114,10 @@ def gmres(matvec, b: torch.Tensor, x0: torch.Tensor | None = None,
     for j in range(m):
         with span("krylov.arnoldi_step"):
             zs[j] = pc(vs[j])
-            w = matvec(zs[j])
-            # Modified Gram-Schmidt against v_0..v_j (w -= h_ij v_i in one
-            # kernel; the column of H is stored once).
-            hcol = []
-            for i in range(j + 1):
-                hcol.append(_dotcols(vs[i], w))
-                w = w.addcmul(vs[i], hcol[-1], value=-1.0)
-            h[: j + 1, j] = torch.stack(hcol)
-            hnorm = _dotcols(w, w).sqrt()
-            # A converged column's w must become a ZERO basis vector (and a
-            # zero H entry), not w/eps noise. The threshold sits above the
-            # dtype's MGS roundoff floor (~eps |w| before orthogonalization):
-            # an absolute 1e-12 never fires in f32, and w / 1e-30 -> inf.
-            breakdown = hnorm < BREAKDOWN_EPS * eps * safe_beta
-            h[j + 1, j] = torch.where(breakdown, 0.0, hnorm)
-            vs[j + 1] = torch.where(breakdown, 0.0, w / hnorm.clamp_min(TINY))
+            # Modified Gram-Schmidt against v_0..v_j, the breakdown guard,
+            # H's column and v_{j+1}: one kernel launch on the card.
+            mgs_step(vs, matvec(zs[j]).contiguous(), h, j, safe_beta,
+                     BREAKDOWN_EPS * eps)
 
     # min ||beta e1 - H y|| per column by a thin QR of H (q, m+1, m):
     # normal equations would square its condition number.

@@ -42,7 +42,8 @@ benchmark's readers, cudabench/metrics/, take ratios of them):
     fgmres_capped (solves returned krylov.fgmres_capped_share.gains
       above tol at max_cycles)
   riccati/lyap_adi.py
-    adi_iterations                 krylov.host_reads_per_adi.gains
+    adi_iterations                 krylov.host_reads_per_adi.gains,
+                                   krylov.mgs_launches_per_adi.gains
   utils/profiling.py
     host_reads                     krylov.host_reads_per_adi.gains
   solvers/ns_inverse.py
@@ -54,6 +55,9 @@ benchmark's readers, cudabench/metrics/, take ratios of them):
   ops/spmm_kernel.py launches, ops/conv_kernel.py launches
                                    the kernels' launches (K2's and K1's
                                    rooflines)
+  ops/arnoldi_kernel.py
+    launches, launches_onchip (the launches that kept w in shared
+      memory)                      krylov.mgs_launches_per_adi.gains
 
 host_reads counts a device-to-host read where the read is made, in the
 three functions that make the matrix-free DRE path's reads on CUDA:

@@ -11,7 +11,7 @@ one block only, for a measurement that runs its own f64 check
 The sanitizer (`setup(debug_nans=True)`, or OPTCONPY_DEBUG_NANS) makes a
 NaN raise FloatingPointError at the op that produced it: a dispatch mode
 checks every floating output of every op (a device sync each; never for
-timing), and the two CUDA kernel wrappers, which bypass dispatch, check
+timing), and the CUDA kernel wrappers, which bypass dispatch, check
 their own outputs while it is on.
 """
 from __future__ import annotations
