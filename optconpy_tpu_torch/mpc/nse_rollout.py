@@ -628,57 +628,59 @@ def nse_sweep_outputs(
     """
     if feedback not in ("explicit", "implicit"):
         raise ValueError(f"unknown feedback mode: {feedback}")
-    r_b, s_b, n = v0.shape
-    cn = cache_stack.rhs_half is not None
-    implicit = feedback == "implicit"
-    w, gmat, d, g_smw = _sweep_operators(sys.b, cache_stack, ks, implicit)
-    vbar = cache_stack.vbar.T[:, :, None]  # (n, R, 1)
-    pmat = sys.mass.todense() / dt + (
-        cache_stack.rhs_half if cn else cache_stack.l1_imp
-    )
+    with span("sweep.call"):
+        r_b, s_b, n = v0.shape
+        cn = cache_stack.rhs_half is not None
+        implicit = feedback == "implicit"
+        w, gmat, d, g_smw = _sweep_operators(sys.b, cache_stack, ks, implicit)
+        vbar = cache_stack.vbar.T[:, :, None]  # (n, R, 1)
+        pmat = sys.mass.todense() / dt + (
+            cache_stack.rhs_half if cn else cache_stack.l1_imp
+        )
 
-    def bview(x):  # (n, R*S) -> its (R, n, S) view
-        return x.view(n, r_b, s_b).permute(1, 0, 2)
+        def bview(x):  # (n, R*S) -> its (R, n, S) view
+            return x.view(n, r_b, s_b).permute(1, 0, 2)
 
-    def controls(x):  # u = -K (x - vbar), bucket by bucket: (R, m, S)
-        dx = x.view(n, r_b, s_b) - vbar
-        return torch.bmm(ks, dx.permute(1, 0, 2)).neg_()
+        def controls(x):  # u = -K (x - vbar), bucket by bucket: (R, m, S)
+            dx = x.view(n, r_b, s_b) - vbar
+            return torch.bmm(ks, dx.permute(1, 0, 2)).neg_()
 
-    v = v0.permute(2, 0, 1).contiguous().view(n, r_b * s_b)
-    ys = v.new_empty((nts + 1, sys.p_out, r_b * s_b))
-    u_sq = v.new_empty((nts, r_b, s_b))
-    torch.matmul(sys.c, v, out=ys[0])
-    q_prev = None
-    for k in range(nts):
-        vb = bview(v)
-        if not implicit:
-            u = controls(v)
-        rhs = conv.conv_inner_batch_t(v)  # N(v)v
-        if cn:
-            q = rhs
-            bview(q).baddbmm_(cache_stack.l1_imp, vb, alpha=-1.0)
-            rhs = torch.empty_like(v)
-            torch.bmm(pmat, vb, out=bview(rhs))
-            rhs.add_(q, alpha=-1.5).add_(
-                q if q_prev is None else q_prev, alpha=0.5)
-            q_prev = q
-        else:
-            bview(rhs).baddbmm_(pmat, vb, beta=-1.0)  # P v - N(v)v
-        x = torch.empty_like(v)
-        xb = bview(x)
-        torch.bmm(w, bview(rhs), out=xb)
-        xb += d
-        if implicit:
-            xb.baddbmm_(g_smw, torch.bmm(ks, xb), alpha=-1.0)
-            u = controls(x)
-        else:
-            xb.baddbmm_(gmat, u)
-        torch.sum(u * u, dim=1, out=u_sq[k])
-        torch.matmul(sys.c, x, out=ys[k + 1])
-        v = x
-    ys = ys.view(nts + 1, sys.p_out, r_b, s_b).permute(2, 3, 0, 1)
-    return (ys.contiguous(), u_sq.permute(1, 2, 0).contiguous(),
-            v.view(n, r_b, s_b).permute(1, 2, 0).contiguous())
+        v = v0.permute(2, 0, 1).contiguous().view(n, r_b * s_b)
+        ys = v.new_empty((nts + 1, sys.p_out, r_b * s_b))
+        u_sq = v.new_empty((nts, r_b, s_b))
+        torch.matmul(sys.c, v, out=ys[0])
+        q_prev = None
+        for k in range(nts):
+            with span("sweep.step"):
+                vb = bview(v)
+                if not implicit:
+                    u = controls(v)
+                rhs = conv.conv_inner_batch_t(v)  # N(v)v
+                if cn:
+                    q = rhs
+                    bview(q).baddbmm_(cache_stack.l1_imp, vb, alpha=-1.0)
+                    rhs = torch.empty_like(v)
+                    torch.bmm(pmat, vb, out=bview(rhs))
+                    rhs.add_(q, alpha=-1.5).add_(
+                        q if q_prev is None else q_prev, alpha=0.5)
+                    q_prev = q
+                else:
+                    bview(rhs).baddbmm_(pmat, vb, beta=-1.0)  # P v - N(v)v
+                x = torch.empty_like(v)
+                xb = bview(x)
+                torch.bmm(w, bview(rhs), out=xb)
+                xb += d
+                if implicit:
+                    xb.baddbmm_(g_smw, torch.bmm(ks, xb), alpha=-1.0)
+                    u = controls(x)
+                else:
+                    xb.baddbmm_(gmat, u)
+                torch.sum(u * u, dim=1, out=u_sq[k])
+                torch.matmul(sys.c, x, out=ys[k + 1])
+                v = x
+        ys = ys.view(nts + 1, sys.p_out, r_b, s_b).permute(2, 3, 0, 1)
+        return (ys.contiguous(), u_sq.permute(1, 2, 0).contiguous(),
+                v.view(n, r_b, s_b).permute(1, 2, 0).contiguous())
 
 
 def nse_closed_loop_outputs(

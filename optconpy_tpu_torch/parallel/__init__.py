@@ -8,16 +8,19 @@ from .mesh import (
     shard_scenarios,
 )
 from .param_sweep import (
+    SweepLayout,
     assign_re_buckets,
     build_sweep_gains_and_caches,
     masked_sweep_stats,
     sharded_sweep_rollout,
+    sweep_layout,
     sweep_rollout,
 )
 from .sharded_mpc import sharded_closed_loop, sharded_nse_rollout
 
 __all__ = [
     "ScenarioMesh",
+    "SweepLayout",
     "assign_re_buckets",
     "build_sweep_gains_and_caches",
     "init_multihost",
@@ -28,5 +31,6 @@ __all__ = [
     "sharded_closed_loop",
     "sharded_nse_rollout",
     "sharded_sweep_rollout",
+    "sweep_layout",
     "sweep_rollout",
 ]

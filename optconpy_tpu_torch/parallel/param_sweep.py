@@ -9,13 +9,15 @@ evaluator serves the whole sweep and only the step caches and gains
 are per bucket; the bucket caches are stacked on a leading R axis
 (NSEStepCache.stack) and the rollout is one time loop over all R x S
 scenarios (mpc/nse_rollout.py nse_sweep_outputs). Buckets of unequal
-real counts are padded to one width and masked out of the statistics.
-sharded_sweep_rollout splits the scenario axis over torch.distributed
-ranks and all-reduces the statistics' partial sums.
+real counts are padded to one width and masked out of the statistics
+(sweep_layout places them). sharded_sweep_rollout splits the scenario
+axis over torch.distributed ranks and all-reduces the statistics'
+partial sums.
 """
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -231,3 +233,52 @@ def assign_re_buckets(re_values: np.ndarray, re_buckets: np.ndarray):
     return np.argmin(
         np.abs(re_values[:, None] - re_buckets[None, :]), axis=1
     ).astype(np.int32)
+
+
+# Counters (utils/profiling.py): scenario-columns that sweep_layout
+# gives real scenarios and padding, summed over its calls.
+layout_real_columns = 0
+layout_padded_columns = 0
+
+
+@dataclass(frozen=True)
+class SweepLayout:
+    """Where the scenarios of a sweep live in its (R, s_max) grid.
+
+    counts (R,) the real scenarios of each bucket; s_max the padded
+    width, a multiple of the pad; mask (R, s_max) float64, 1 on a real
+    row and 0 on a padded one (bucket r's real rows are 0..counts[r]-1);
+    bucket and row (S,) the grid position of scenario i."""
+
+    counts: np.ndarray
+    s_max: int
+    mask: np.ndarray
+    bucket: np.ndarray
+    row: np.ndarray
+
+
+def sweep_layout(assignment: np.ndarray, buckets: int,
+                 pad: int) -> SweepLayout:
+    """The grid of a sweep from its scenario-to-bucket assignment (S,)
+    (assign_re_buckets): each bucket takes its scenarios in draw order
+    and is padded, with every other bucket, to the largest count rounded
+    up to a multiple of `pad`. Adds the grid's real and padded columns
+    to the module's counters."""
+    global layout_real_columns, layout_padded_columns
+    assignment = np.asarray(assignment)
+    counts = np.bincount(assignment, minlength=buckets)
+    if counts.shape[0] != buckets:
+        raise ValueError(f"an assignment to bucket {assignment.max()} of "
+                         f"{buckets} buckets")
+    s_max = int(-(-counts.max() // pad) * pad)
+    # scenario i's row: how many earlier scenarios share its bucket
+    order = np.argsort(assignment, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    row = np.empty_like(order)
+    row[order] = np.arange(order.shape[0]) - starts[assignment[order]]
+    mask = (np.arange(s_max)[None, :] < counts[:, None]).astype(np.float64)
+    real = int(counts.sum())
+    layout_real_columns += real
+    layout_padded_columns += buckets * s_max - real
+    return SweepLayout(counts=counts, s_max=s_max, mask=mask,
+                       bucket=assignment.astype(np.int64), row=row)

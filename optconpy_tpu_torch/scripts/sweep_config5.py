@@ -25,6 +25,7 @@ from ..parallel.param_sweep import (
     assign_re_buckets,
     build_sweep_gains_and_caches,
     masked_sweep_stats,
+    sweep_layout,
     sweep_rollout,
 )
 from ._common import cli_main, clock, log
@@ -72,9 +73,9 @@ def run(device, *, setups=None, problem: str | None = None,
     # statistic is weighted by the real counts.
     rng = np.random.default_rng(SEED)
     re_draw = rng.uniform(*re_range, s_total)
-    counts = np.bincount(assign_re_buckets(re_draw, re_buckets),
-                         minlength=buckets)
-    s_max = int(-(-counts.max() // pad) * pad)
+    layout = sweep_layout(assign_re_buckets(re_draw, re_buckets), buckets,
+                          pad)
+    counts, s_max = layout.counts, layout.s_max
     log(f"scenario draw per bucket {counts}; S_max (padded) {s_max}")
 
     if cuda:
@@ -117,14 +118,12 @@ def run(device, *, setups=None, problem: str | None = None,
     # plus a perturbation; padded rows repeat the steady state with mask
     # 0 (they compute but never enter a statistic).
     v0_np = np.empty((buckets, s_max, n))
-    mask_np = np.zeros((buckets, s_max))
     for r, (np_ops, _, cond) in enumerate(setups):
         v0_np[r] = cond.restrict(np_ops["vbar_full"])[None]
         c = int(counts[r])
         v0_np[r, :c] += PERTURBATION * rng.standard_normal((c, n))
-        mask_np[r, :c] = 1.0
     v0 = torch.as_tensor(v0_np, dtype=dtype).to(device)
-    mask = torch.as_tensor(mask_np, dtype=dtype).to(device)
+    mask = torch.as_tensor(layout.mask, dtype=dtype).to(device)
 
     def sweep():
         ys, u_sq, _ = sweep_rollout(sysd, conv, cache_stack, ks, v0, ALPHA,

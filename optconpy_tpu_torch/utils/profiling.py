@@ -33,6 +33,10 @@ check. A span never synchronizes or reads the device. The names are
   rollout.call          mpc/nse_rollout.py::batched_nse_closed_loop, a
                         call (one control step at B=1)
   rollout.step          a time step of the fused closed loop
+  sweep.call            mpc/nse_rollout.py::nse_sweep_outputs, a call
+                        (the parameter sweep's rollout, its per-bucket
+                        operators included)
+  sweep.step            a time step of it (every bucket's scenarios)
 
 Counters, module-level integers beside the code, always on (the
 benchmark's readers, cudabench/metrics/, take ratios of them):
@@ -58,6 +62,10 @@ benchmark's readers, cudabench/metrics/, take ratios of them):
   ops/arnoldi_kernel.py
     launches, launches_onchip (the launches that kept w in shared
       memory)                      krylov.mgs_launches_per_adi.gains
+  parallel/param_sweep.py
+    layout_real_columns, layout_padded_columns (the scenario-columns
+      sweep_layout gives real scenarios and padding)
+                                   sweep.padded_share.sweep
 
 host_reads counts a device-to-host read where the read is made, in the
 three functions that make the matrix-free DRE path's reads on CUDA:
@@ -87,6 +95,8 @@ SPANS = (
     "lowrank.compress",
     "rollout.call",
     "rollout.step",
+    "sweep.call",
+    "sweep.step",
 )
 _KNOWN = frozenset(SPANS)
 _NULL = nullcontext()
