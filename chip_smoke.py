@@ -219,7 +219,8 @@ FEAS_TOL = 1e-5  # |J Z| / |Z| of the f32 factors (the reference's bound)
 DRE_RES_TOL = 1e-2  # projected DRE step residual (the reference's bound)
 SPMM_TOL = {"float32": 1e-5, "float64": 1e-12}  # kernel vs plain, relative
 # Phase 7 (b): the MGS kernel vs its plain loop, relative; the sums run in
-# another order (by block, then across blocks), so rounding only.
+# another order (by block, then over a cluster's blocks and over clusters),
+# so rounding only.
 MGS_TOL = {"float32": 2e-5, "float64": 1e-12}
 # Phase 8 (b): a Newton-Schulz ladder other than the reference's defaults
 # (rung ratio 1.6, 3 passes a rung, 1 at a shift, M^-1 to 1e-2).
@@ -557,7 +558,8 @@ def mgs_phase(n_c3: int, n_bench: int, dev):
     """Phase 7 (b): the Arnoldi step's MGS kernel vs its plain version
     over whole 30-step cycles, every step's H column and new basis vector
     (<= MGS_TOL), timed with CUDA events beside its bytes bound: each
-    basis vector read once, w read once and v_{j+1} written once a step.
+    basis vector read once, w read once and v_{j+1} written once a step,
+    and beside its plan (clusters, blocks a cluster, on chip).
     At config 3's matrix-free saddle (n_c3) the gains cell's widths q = 4
     and 46 (float32; and float64 at 46) and q = 1,024 (float32, the
     streamed parameter set); at the bench shape's saddle (n_bench) phase
@@ -610,16 +612,21 @@ def mgs_phase(n_c3: int, n_bench: int, dev):
         nbytes = sum(j + 3 for j in range(m)) * n * q * vs.element_size()
         flops = sum(4 * (j + 1) + 3 for j in range(m)) * n * q
         bnd = bound_ms(nbytes, flops, dname)
-        grid, smem, onchip, vec = ak.plan(dev.index or 0, dtype, n, q)
-        log(f"[7b] mgs_step n={n} q={q} {dname} (grid {grid}, {smem} B "
-            f"shared, runs of {vec}, {'on chip' if onchip else 'streamed'}): "
+        grid, smem, onchip, vec, cluster, threads, qc = ak.plan(
+            dev.index or 0, dtype, n, q)
+        log(f"[7b] mgs_step n={n} q={q} {dname} (grid {grid}: "
+            f"{grid // cluster} cluster(s) of {cluster} x {threads} threads, "
+            f"{qc} columns a cluster, {smem} B shared, runs of {vec}, "
+            f"{'on chip' if onchip else 'streamed'}): "
             f"rel err "
             f"{err:.2e} (tol {MGS_TOL[dname]:g}); a 30-step cycle: kernel "
             f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bnd[0]:.4f} ms "
             f"({bnd[1]}) = {bnd[0] / k_ms:.0%} of the kernel's time")
         out[f"n={n} q={q} {dname}"] = {
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
-            "bound_by": bnd[1], "onchip": onchip, "max_rel_err": err,
+            "bound_by": bnd[1], "onchip": onchip, "clusters": grid // cluster,
+            "cluster_blocks": cluster, "threads": threads,
+            "columns_a_cluster": qc, "max_rel_err": err,
         }
         del vs, vk, h, hk, ws
     head = dict(out.pop(f"n={n_c3} q=46 float32"))

@@ -12,20 +12,23 @@ caller's; vs[j+1] and h[:j+2, j] are written in place, w is only read.
 
 On a CPU tensor it runs `mgs_step_plain`, the loop solvers/krylov.py's
 gmres ran inline. On a CUDA tensor it launches the hand-written kernel
-in csrc/mgs_step.cu (one cooperative launch a step; built by
-ops/cuda_build.py) or raises. The kernel replaces no TPU kernel: the
+in csrc/mgs_step.cu (one launch a step, of thread-block clusters; built
+by ops/cuda_build.py) or raises. The kernel replaces no TPU kernel: the
 reference runs the loop as a lax.fori_loop, which XLA fuses; the port's
 loop was three launches a projection.
 
 The kernel takes the same projections in the same order; its sums run in
-another order than torch's (per block, then across blocks, in a fixed
-order), so its results differ from the plain version's in rounding only,
-and repeat bit for bit on one card. The wrapper picks the kernel's
-parameters from n, q and the dtype (`plan`): where the grid's shared
-memory holds w and three basis slabs, w stays on chip and each basis
-vector is read once from device memory ("on chip"); otherwise w lives in
-vs[j+1] between passes ("streamed"). It keeps the word of the kernel's
-grid barrier for each stream it launches on (`_barrier`).
+another order than torch's (per block, then over the blocks of a
+cluster, in a fixed order), so its results differ from the plain
+version's in rounding only, and repeat bit for bit on one card. Every
+column is its own Arnoldi process, so each cluster owns a range of
+columns and no sum crosses the card. The wrapper picks the kernel's
+parameters from n, q and the dtype (`plan`): one cluster over every
+column where the blocks are few, or w fits on chip and a basis vector is
+small, else as many clusters as the card holds at once; where a block's
+shared memory holds w and three basis slabs, w stays on chip and each
+basis vector is read once from device memory ("on chip"), otherwise w
+lives in vs[j+1] between passes ("streamed").
 """
 from __future__ import annotations
 
@@ -38,10 +41,12 @@ from . import cuda_build
 from .cuda_build import check_tensor as _check
 from ..utils import runtime
 
-# Kernel launches made through `mgs_step` (one a call on CUDA), and those
-# of them that kept w on chip.
+# Kernel launches made through `mgs_step` (one a call on CUDA), those of
+# them that kept w on chip, and those whose grid was one cluster over
+# every column.
 launches = 0
 launches_onchip = 0
+launches_one_cluster = 0
 
 
 def mgs_step_plain(vs: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
@@ -76,7 +81,7 @@ def _library():
         fn.restype = ctypes.c_int
     for name in ("mgs_step_f32", "mgs_step_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [p] * 6 + [i64] * 4 + [ctypes.c_double] + [i64] * 4 + [p]
+        fn.argtypes = [p] * 4 + [i64] * 4 + [ctypes.c_double] + [i64] * 7 + [p]
         fn.restype = ctypes.c_int
     lib.mgs_step_error_string.argtypes = [ctypes.c_int]
     lib.mgs_step_error_string.restype = ctypes.c_char_p
@@ -95,24 +100,16 @@ def _raise(rc: int, what: str):
 def plan(device_index: int, dtype: torch.dtype, n: int, q: int):
     """The kernel's launch for (n, q) blocks of `dtype` on a card: (grid,
     bytes of shared memory, whether w stays on chip, elements a thread
-    moves at once: 16 bytes' worth where n q and q allow, else 1)."""
-    out = (ctypes.c_int32 * 4)()
+    moves at once: 16 bytes' worth where the shape allows, else 1, blocks
+    of a cluster: the grid is one cluster where it equals the grid,
+    threads of a block, columns a cluster owns)."""
+    out = (ctypes.c_int32 * 7)()
     with torch.cuda.device(device_index):
         rc = getattr(_library(), f"mgs_step_plan_{_SUFFIX[dtype]}")(
             n, q, ctypes.addressof(out))
     if rc != 0:
         _raise(rc, f"plan for n={n}, q={q}, {dtype}")
-    return out[0], out[1], bool(out[2]), out[3]
-
-
-@functools.cache
-def _barrier(device_index: int, stream: int) -> torch.Tensor:
-    """The word of the kernel's grid barrier for launches on one stream:
-    zero at first; a launch flips its top bit at each barrier and leaves
-    the other bits zero. Launches on one stream run one after another, so
-    they share it."""
-    return torch.zeros(1, dtype=torch.int32,
-                       device=torch.device("cuda", device_index))
+    return out[0], out[1], bool(out[2]), out[3], out[4], out[5], out[6]
 
 
 def validate(vs: torch.Tensor, w: torch.Tensor, h: torch.Tensor, j: int,
@@ -145,7 +142,7 @@ def mgs_step(vs: torch.Tensor, w: torch.Tensor, h: torch.Tensor, j: int,
     safe_beta (q,), contiguous, one dtype and device, 0 <= j < m;
     anything else raises.
     """
-    global launches, launches_onchip
+    global launches, launches_onchip, launches_one_cluster
     if w.device.type == "cpu":
         return mgs_step_plain(vs, w, h, j, safe_beta, factor)
     if w.device.type != "cuda":
@@ -153,18 +150,18 @@ def mgs_step(vs: torch.Tensor, w: torch.Tensor, h: torch.Tensor, j: int,
     m, n, q = validate(vs, w, h, j, safe_beta)
     dev = w.device
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    grid, smem, onchip, vec = plan(index, w.dtype, n, q)
-    part = torch.empty(2 * grid * q, dtype=w.dtype, device=dev)
+    grid, smem, onchip, vec, cluster, threads, qc = plan(index, w.dtype, n, q)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(_library(), f"mgs_step_{_SUFFIX[w.dtype]}")(
             vs.data_ptr(), w.data_ptr(), h.data_ptr(), safe_beta.data_ptr(),
-            part.data_ptr(), _barrier(index, stream).data_ptr(), n, q, m, j,
-            factor, grid, smem, int(onchip), vec, stream,
+            n, q, m, j, factor, grid, cluster, threads, smem, int(onchip), vec,
+            qc, stream,
         )
     if rc != 0:
         _raise(rc, "launch")
     launches += 1
     launches_onchip += onchip
+    launches_one_cluster += grid == cluster
     if runtime.debug_nans():  # the launch bypasses the sanitizer's dispatch
         runtime.check_nan("mgs_step", vs[j + 1])

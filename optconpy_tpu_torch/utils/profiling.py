@@ -62,6 +62,8 @@ benchmark's readers, cudabench/metrics/, take ratios of them):
   ops/arnoldi_kernel.py
     launches, launches_onchip (the launches that kept w in shared
       memory)                      krylov.mgs_launches_per_adi.gains
+    launches_one_cluster (the launches whose grid was one cluster)
+                                   krylov.mgs_one_cluster_share.gains
   parallel/param_sweep.py
     layout_real_columns, layout_padded_columns (the scenario-columns
       sweep_layout gives real scenarios and padding)

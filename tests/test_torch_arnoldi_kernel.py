@@ -9,12 +9,13 @@ the kernel does not take; the launch counters do not move on the CPU.
 On the card (marked `cuda`, skipped without one): the kernel against
 `mgs_step_plain` at the gains cell's shapes (n = 17,396, q = 4 and 46,
 every step of a 30-step cycle, float32), at q = 16 and q = 1,024 (the
-streamed parameter set) and in float64, the basis it builds within
-twice the plain loop's loss of orthogonality and Arnoldi residual, and
-two runs equal bit for bit, the grid barrier's word left with its low
-bits zero. The
-kernel sums in another order than torch (by block, then across blocks),
-so it is held to the plain version within rounding: 2e-5 relative in
+streamed parameter set), in float64 and at the bench shape's stepper
+(n = 5,037, q = 3, float64), on both sides of the plan's crossover from
+one thread-block cluster to several (each owning a range of columns),
+the basis it builds within twice the plain loop's loss of orthogonality
+and Arnoldi residual, and two runs equal bit for bit. The kernel sums in
+another order than torch (by block, then over a cluster's blocks), so it
+is held to the plain version within rounding: 2e-5 relative in
 float32 and 1e-12 in float64 on the H column and the new basis vector
 (the inputs are well conditioned: w keeps most of its norm). This file
 imports no jax:
@@ -29,6 +30,7 @@ from optconpy_tpu_torch.solvers import krylov
 
 M = 30  # the Krylov dimension of the matrix-free tier (m_krylov)
 N_CELL = 17_396  # the gains cell's saddle: 15,316 velocity + 2,080 pressure
+N_BENCH = 5_037  # the bench shape's saddle (its matrix-free stepper, q = 3)
 
 
 def _inline_loop(vs, w, h, j, safe_beta):
@@ -156,13 +158,14 @@ def test_no_kernel_for_other_devices():
 
 
 def test_counters_do_not_move_on_the_cpu():
-    before = (ak.launches, ak.launches_onchip)
+    before = (ak.launches, ak.launches_onchip, ak.launches_one_cluster)
     vs, w, h, sb = _inputs(32, 4, 3, torch.float64, torch.device("cpu"))
     ak.mgs_step(vs, w, h, 3, sb, _factor(torch.float64))
     a = torch.eye(32, dtype=torch.float64) * 2.0
     krylov.fgmres(lambda x: a @ x, torch.ones((32, 2), dtype=torch.float64),
                   m=5)
-    assert (ak.launches, ak.launches_onchip) == before
+    assert (ak.launches, ak.launches_onchip,
+            ak.launches_one_cluster) == before
 
 
 # --- on the card ------------------------------------------------------------
@@ -228,23 +231,34 @@ def _arnoldi_residual(vs, h, ws):
     )
 
 
+def _one_cluster(dtype, n, q):
+    """Whether the plan's grid is one thread-block cluster."""
+    plan = ak.plan(0, dtype, n, q)
+    return plan[0] == plan[4]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("q, dtype, onchip", [
-    (4, torch.float32, True), (46, torch.float32, True),
-    (16, torch.float32, True), (1024, torch.float32, False),
-    (46, torch.float64, True), (4, torch.float64, True),
+@pytest.mark.parametrize("n, q, dtype, onchip, one", [
+    (N_CELL, 4, torch.float32, True, True),
+    (N_CELL, 46, torch.float32, True, False),
+    (N_CELL, 16, torch.float32, True, False),
+    (N_CELL, 1024, torch.float32, False, False),
+    (N_CELL, 46, torch.float64, True, False),
+    (N_CELL, 4, torch.float64, True, False),
+    (N_BENCH, 3, torch.float64, True, True),
 ])
-def test_kernel_matches_plain_every_step(dev, q, dtype, onchip):
+def test_kernel_matches_plain_every_step(dev, n, q, dtype, onchip, one):
     """Every step of a 30-step cycle: the kernel from the plain loop's
     basis and w gives the plain loop's H column and v_{j+1} within
     rounding; a whole cycle built by the kernel is no less orthogonal
     than the plain loop's and satisfies the Arnoldi relation as well
     (2x: both lose orthogonality and the relation by rounding); the
-    parameter set is the one the shape calls for."""
-    n = N_CELL
+    parameter set and the cluster count are the ones the shape calls
+    for, on both sides of the plan's crossover to one cluster."""
     assert ak.plan(0, dtype, n, q)[2] is onchip
+    assert _one_cluster(dtype, n, q) is one
     vs, h, ws, sb = _cycle(ak.mgs_step_plain, n, q, dtype, dev)
-    before = (ak.launches, ak.launches_onchip)
+    before = (ak.launches, ak.launches_onchip, ak.launches_one_cluster)
     for j in range(M):
         vk, hk = vs.clone(), h.clone()
         vk[j + 1:] = 0.0
@@ -255,32 +269,40 @@ def test_kernel_matches_plain_every_step(dev, q, dtype, onchip):
         assert _rel(vk[j + 1], vs[j + 1]) <= TOL[dtype], j
         assert torch.equal(vk[: j + 1], vs[: j + 1])
         assert not hk[j + 2:, j].any()
-    assert (ak.launches - before[0], ak.launches_onchip - before[1]) == (
-        M, M if onchip else 0)
+    assert (ak.launches - before[0], ak.launches_onchip - before[1],
+            ak.launches_one_cluster - before[2]) == (
+        M, M if onchip else 0, M if one else 0)
     vk, hk, wk, _ = _cycle(ak.mgs_step, n, q, dtype, dev)
     assert _orthogonality(vk) <= 2.0 * _orthogonality(vs)
     assert _arnoldi_residual(vk, hk, wk) <= 2.0 * _arnoldi_residual(vs, h, ws)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("q, dtype", [(46, torch.float32), (1024, torch.float32),
-                                      (4, torch.float64)])
-def test_kernel_repeats_bit_for_bit(dev, q, dtype):
-    one = _cycle(ak.mgs_step, N_CELL, q, dtype, dev, seed=3)
-    two = _cycle(ak.mgs_step, N_CELL, q, dtype, dev, seed=3)
+@pytest.mark.parametrize("n, q, dtype", [
+    (N_CELL, 46, torch.float32), (N_CELL, 1024, torch.float32),
+    (N_CELL, 4, torch.float64), (N_CELL, 4, torch.float32),
+    (N_CELL, 16, torch.float32), (N_BENCH, 3, torch.float64),
+])
+def test_kernel_repeats_bit_for_bit(dev, n, q, dtype):
+    """Two cycles from one start are the same bits, on one cluster and on
+    several (a fixed summation order)."""
+    one = _cycle(ak.mgs_step, n, q, dtype, dev, seed=3)
+    two = _cycle(ak.mgs_step, n, q, dtype, dev, seed=3)
     assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    assert int(ak._barrier(0, stream)) & 0x7FFFFFFF == 0
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n, q, j", [(N_CELL, 46, 29), (N_CELL, 1024, 5),
-                                     (37, 3, 4), (4_396, 1, 0)])
+                                     (37, 3, 4), (4_396, 1, 0),
+                                     (N_CELL, 4, 29), (17_389, 4, 3),
+                                     (17_389, 16, 11), (17_389, 46, 9),
+                                     (1_001, 2, 6)])
 def test_kernel_breakdown_and_ragged_shapes(dev, dtype, n, q, j):
     """A column in the span of its basis breaks down to a zero vector and
     a zero H entry as in the plain loop; small and ragged shapes (fewer
-    rows than blocks, q = 1) match it too."""
+    rows than blocks, q = 1, a last block of fewer rows, on one cluster
+    and on several) match it too."""
     vs, w, h, sb = _inputs(n, q, j, dtype, dev, seed=7)
     vp, hp = vs.clone(), h.clone()
     ak.mgs_step_plain(vp, w, hp, j, sb, _factor(dtype))
@@ -297,7 +319,7 @@ def test_kernel_w_off_16_bytes(dev, dtype):
     """A w that starts off a 16-byte boundary (a contiguous view at an
     offset of one element) takes the kernel's single-element runs and
     gives the same result within rounding."""
-    n, q, j = N_CELL, 46, 12
+    n, q, j = N_CELL, 16, 12
     vs, w, h, sb = _inputs(n, q, j, dtype, dev, seed=11)
     assert ak.plan(0, dtype, n, q)[3] > 1
     big = torch.empty(n * q + 1, dtype=dtype, device=dev)
@@ -323,3 +345,24 @@ def test_kernel_plans_of_other_shapes_in_between(dev):
         torch.cuda.synchronize()
         assert _rel(h, hp) <= TOL[torch.float32], q
         assert _rel(vs, vp) <= TOL[torch.float32], q
+
+
+@pytest.mark.cuda
+def test_plan_one_cluster_narrow_several_wide(dev):
+    """At the gains cell's saddle the narrow solves (q = 4) take one
+    cluster over every column and the wide ones (q = 46) several, each
+    owning a range of columns; every plan's grid is whole clusters, at
+    most one block an SM, and its clusters own every column once."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype, n, q in ((torch.float32, N_CELL, 4), (torch.float32, N_CELL, 16),
+                        (torch.float32, N_CELL, 46), (torch.float64, N_BENCH, 3),
+                        (torch.float32, N_CELL, 1024), (torch.float64, N_CELL, 46)):
+        grid, _, _, vec, cluster, threads, qc = ak.plan(0, dtype, n, q)
+        assert grid % cluster == 0 and grid <= sms, (n, q)
+        assert threads in (128, 256, 512, 1024), (n, q)
+        clusters = grid // cluster
+        assert (clusters - 1) * qc < q <= clusters * qc, (n, q)
+        assert clusters == 1 or (q % vec == 0 and qc % vec == 0), (n, q)
+    assert _one_cluster(torch.float32, N_CELL, 4)
+    assert _one_cluster(torch.float64, N_BENCH, 3)
+    assert not _one_cluster(torch.float32, N_CELL, 46)
