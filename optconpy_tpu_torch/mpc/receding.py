@@ -54,7 +54,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops import conv_kernel, spmm_kernel
 from ..riccati.dre import dre_backward_sweep
 from ..solvers.ns_inverse import NSShiftStack
 from ..solvers.saddle import SaddleLU, SaddleShiftedLUCache
@@ -243,8 +242,7 @@ def receding_horizon_mpc(
     macro the seconds {rebuild_s, dre_s, probe_s, stepper_join_s,
     rollout_s, total_s} under result['timings'], the seconds the worker
     thread's stepper refresh took beside the DRE sweep
-    (stepper_refresh_s, 0 without one), and each stage's launches of the
-    two kernels (launches: {stage: {"conv_p2": k1, "spmm_tile": k2}}).
+    (stepper_refresh_s, 0 without one).
     checkpoint: optional npz path. After every macro step the loop state
     (macro index, scenario batch, warm-start gain) is written atomically;
     a later call with the same path resumes from the last completed step
@@ -287,16 +285,12 @@ def receding_horizon_mpc(
                 v_batch = on_device(ck["v_batch"])
                 k_prev = on_device(ck["k_prev"])
 
-    stamps = []
-
     def stamp():
-        """Wall clock (and the kernel launch counters) at a stage
-        boundary, the device drained first under profile."""
+        """Wall clock at a stage boundary, the device drained first under
+        profile."""
         if profile:
             _sync(device)
-        stamps.append((time.perf_counter(), conv_kernel.launches,
-                       spmm_kernel.launches))
-        return stamps[-1][0]
+        return time.perf_counter()
 
     vs_hist = [v_batch]
     us_hist, ks_hist, timings, macros = [], [], [], []
@@ -307,7 +301,6 @@ def receding_horizon_mpc(
     sig_np = np.asarray(sig, np.float64)
     try:
         for macro in range(start_macro, n_macro):
-            stamps.clear()
             t_macro0 = stamp()
             rec = {"macro": macro}
             # vnom is only the linearization point; the feedback setpoint
@@ -392,8 +385,6 @@ def receding_horizon_mpc(
                 rec["fgmres_rollout"] = cache.saddle.stats.as_dict()
             t_end = stamp()
             if profile:
-                stages = ("rebuild", "dre", "probe", "stepper_join",
-                          "rollout")
                 timings.append({
                     "rebuild_s": t_dre0 - t_macro0,
                     "dre_s": t_probe0 - t_dre0,
@@ -402,11 +393,6 @@ def receding_horizon_mpc(
                     "rollout_s": t_end - t_roll0,
                     "total_s": t_end - t_macro0,
                     "stepper_refresh_s": t_refresh,
-                    "launches": {
-                        stage: {"conv_p2": b[1] - a[1],
-                                "spmm_tile": b[2] - a[2]}
-                        for stage, a, b in zip(stages, stamps, stamps[1:])
-                    },
                 })
             if checkpoint is not None:
                 tmp = checkpoint + ".tmp.npz"

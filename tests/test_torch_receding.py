@@ -474,15 +474,10 @@ def test_profile_keys(lu_runs):
     assert len(got["timings"]) == LU_MACROS
     stages = ("rebuild", "dre", "probe", "stepper_join", "rollout")
     for t in got["timings"]:
-        launches = t.pop("launches")
         assert t.pop("stepper_refresh_s") == 0.0  # the lu tier has none
         assert set(t) == {f"{s}_s" for s in stages} | {"total_s"}
         assert all(v >= 0 for v in t.values())
         assert t["total_s"] >= t["dre_s"] + t["rollout_s"]
-        # the CPU takes the kernels' plain versions: no launch
-        assert set(launches) == set(stages)
-        assert all(c == {"conv_p2": 0, "spmm_tile": 0}
-                   for c in launches.values())
 
 
 CK_CFG = dict(horizon=6, apply=3, dt=0.02, alpha=1e-6, r_max=24)
