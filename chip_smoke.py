@@ -27,15 +27,17 @@ Phases and what each checks:
      f32 finite and <= 1e-4 from f64; every step's f32 factors certified
      by scripts/validate_gains.py (projected DRE residual, host f64,
      below the GAINQ bound 1e-3);
-  5. the fused closed loop, 1024 x 64: K1 once a step, output shapes,
-     finite outputs, TF32 off; a torch.profiler listing of one rollout
-     with one K1 a step and no index_put, gather, scatter or per-step
-     copy kernel;
+  5. the fused closed loop, 1024 x 64: K1 and K2 (the step's sparse
+     P = M/dt + L1) once a step, K2 held against its plain version on the
+     rollout's own inputs, output shapes, finite outputs, TF32 off; a
+     torch.profiler listing of one rollout with one K1 and one K2 a step
+     and no index_put, gather, scatter or per-step copy kernel;
   6. 2 scenarios of it in f64 on the CPU with the plain versions
      (closed-loop outputs <= 1e-4);
   7. (a) the SpMM kernel K2 vs its plain torch version on the config-3
      NS pencil (Atil^T, M, J, J^T) at B = 17,396, 46, 16, 8, 4 and 1, f32
-     (<= 1e-5) and f64 (<= 1e-12): finite, a repeat bit for bit, and
+     (<= 1e-5) and f64 (<= 1e-12), and on phase 5's fused-step P at
+     B = 1024 and 1 in f32: finite, a repeat bit for bit, and
      torch.sparse.mm within the same bound; each timed alone beside its
      plain version, torch.sparse.mm and its bound; (b) the Arnoldi
      step's MGS kernel vs its plain loop, every step of a 30-step cycle
@@ -59,8 +61,9 @@ Phases and what each checks:
      11 (b));
  10. the user's entry point optcon_nse: (a) config 4 (the bench shape
      with a feedforward and a gain for each of 64 steps) in f32 on the
-     fused step tier with Newton-Schulz gains, 1024 scenarios: K1 exactly
-     64 launches, all in the rollout, K2 in the DRE stage, output shapes,
+     fused step tier with Newton-Schulz gains, 1024 scenarios: K1 and K2
+     exactly 64 launches in the rollout, K1 none elsewhere, K2 in the DRE
+     stage, output shapes,
      finite gains, outputs and cost, TF32 off; (b) the same in f64 on 2
      scenarios: gains and ys <= 1e-4 from f32; (c) config 1 (heat1d) on
      the lu tiers, card vs CPU (<= 1e-10); (d) the lu tiers on the card
@@ -399,13 +402,14 @@ def pack_csr(a):
     return coo.coalesce().to_sparse_csr()
 
 
-def spmm_phase(c3_ops, dev) -> dict:
+def spmm_phase(c3_ops, fused_p, dev) -> dict:
     """Phase 7 (a): the SpMM kernel vs its plain version and
     torch.sparse.mm on the config-3 NS pencil's operators, at the NS
     width and the matrix-free tier's widths (46 the ADI block p + r_max +
-    m, 16 the rollout, 4 SMW), each timed alone beside its plain version,
-    torch.sparse.mm and its bound. Returns the JSON fields of Atil^T at
-    the NS width in float32."""
+    m, 16 the rollout, 4 SMW), and on the fused step's P (the float32
+    pack `fused_p`) at the rollout's width and at 1, each timed alone
+    beside its plain version, torch.sparse.mm and its bound. Returns the
+    JSON fields of Atil^T at the NS width in float32."""
     import torch
 
     from optconpy_tpu_torch.ops import spmm_kernel
@@ -420,12 +424,15 @@ def spmm_phase(c3_ops, dev) -> dict:
             at_til, c3_ops["M"], c3_ops["J"], device=dev, dtype=dtype
         )
         nn = pack.n + pack.n_p
-        for name in ("at", "m", "j", "jt"):
-            a = getattr(pack, name)
+        cases = [(name, getattr(pack, name), (nn, 46, 16, 8, 4, 1))
+                 for name in ("at", "m", "j", "jt")]
+        if dtype == fused_p.dtype:
+            cases.append(("fused P", fused_p, (S_BATCH, 1)))
+        for name, a, widths in cases:
             m_rows, n_cols = a.shape
             nnz = a.nnz
             lib_a = pack_csr(a)
-            for b in (nn, 46, 16, 8, 4, 1):
+            for b in widths:
                 x = torch.randn((n_cols, b), generator=gen, dtype=dtype,
                                 device=dev)
                 y = spmm_kernel.spmm(a, x)
@@ -777,9 +784,9 @@ def driver_phase(v0_np, dev) -> None:
     config4, heat, cavity = driver_configs()
     conv_kernel.launches = 0
     res32, per_stage = run(config4, v0_np, dev)
-    check(per_stage["closed_loop_rollout"][0] == NTS,
-          f"conv_p2 launches in the driver's rollout: "
-          f"{per_stage['closed_loop_rollout'][0]} != {NTS}")
+    check(per_stage["closed_loop_rollout"] == (NTS, NTS),
+          f"(conv_p2, spmm_tile) launches in the driver's rollout: "
+          f"{per_stage['closed_loop_rollout']} != {(NTS, NTS)}")
     check(conv_kernel.launches == NTS,
           f"conv_p2 launches in the driver: {conv_kernel.launches} != {NTS}")
     check(per_stage["dre_backward_sweep"][1] > 0,
@@ -795,7 +802,8 @@ def driver_phase(v0_np, dev) -> None:
     check(torch.backends.cudnn.allow_tf32 is False, "TF32 cuDNN off")
     log(f"[10] optcon_nse on the card, config 4 in f32 ({s_batch} scenarios "
         f"x {NTS} steps, fused step, Newton-Schulz gains): conv_p2 {NTS} "
-        f"launches, all in the rollout; spmm_tile in the DRE stage; "
+        f"launches, all in the rollout; spmm_tile {NTS} in the rollout and "
+        f"more in the DRE stage; "
         f"outputs finite; TF32 off")
 
     cfg64 = dataclasses.replace(
@@ -2080,7 +2088,7 @@ def main() -> None:
     from optconpy_tpu_torch.fem.device_conv import ConvKernel, FusedConvKernel
     from optconpy_tpu_torch.models.cylinder import cylinder_setup
     from optconpy_tpu_torch.mpc import batched_nse_closed_loop, build_nse_fused
-    from optconpy_tpu_torch.ops import conv_kernel, cuda_build
+    from optconpy_tpu_torch.ops import conv_kernel, cuda_build, spmm_kernel
     from optconpy_tpu_torch.riccati import (
         dre_backward_sweep,
         dre_shift_schedule_dae,
@@ -2198,10 +2206,17 @@ def main() -> None:
         )
 
     conv_kernel.launches = 0
-    vs, us, ys = rollout()
+    spmm_kernel.launches = 0
+    with recorded_spmm_inputs() as seen:
+        vs, us, ys = rollout()
     main_launches = conv_kernel.launches
     check(main_launches == NTS,
           f"conv_p2 launches in the rollout: {main_launches} != {NTS}")
+    check(spmm_kernel.launches == NTS,
+          f"spmm_tile launches in the rollout: {spmm_kernel.launches} != "
+          f"{NTS}")
+    rollout_k2_err = check_spmm_inputs("5 fused rollout", seen)
+    del seen
     check(tuple(ys.shape) == (S_BATCH, NTS + 1, sys32.p_out), "ys shape")
     check(tuple(us.shape) == (S_BATCH, NTS, m), "us shape")
     for name, x in (("vs", vs), ("us", us), ("ys", ys)):
@@ -2210,6 +2225,9 @@ def main() -> None:
     check(kernel_calls(rows, "conv_p2_patch") == NTS,
           f"profiled convection kernels: "
           f"{kernel_calls(rows, 'conv_p2_patch')} != {NTS}")
+    check(kernel_calls(rows, "spmm_tile") == NTS,
+          f"profiled SpMM kernels: {kernel_calls(rows, 'spmm_tile')} != "
+          f"{NTS}")
     check(kernel_calls(rows, "index", "gather", "scatter") == 0,
           "index_put, gather or scatter kernels in the rollout")
     # copies only once per rollout (the transposed initial state and the
@@ -2217,7 +2235,8 @@ def main() -> None:
     copies = kernel_calls(rows, "copy")
     check(copies < NTS, f"copy kernels in the rollout: {copies}")
     log(f"[5] fused closed loop {S_BATCH} x {NTS}: conv_p2 {main_launches} "
-        f"launches, one a step in the profiler's listing, no index_put, "
+        f"and spmm_tile {NTS} launches, one each a step in the profiler's "
+        f"listing, no index_put, "
         f"gather or scatter kernel, {copies} copy kernels; outputs finite; "
         f"TF32 off")
 
@@ -2241,6 +2260,7 @@ def main() -> None:
     init_multihost(dev, f"file://{store.name}/store", rank=0, world_size=1)
     mesh = scenario_mesh(dev)
     sharded_fused_phase(mesh, sys32, conv, fused32, ks, ws, v0, ys, us)
+    fused_p = fused32.ppack
     del fused64, fused32, conv, conv64
 
     # --- 7. K2 and the MGS kernel on config 3's operators ---------------
@@ -2251,13 +2271,15 @@ def main() -> None:
         c3_iv = config3_cylinder.shift_interval(c3_ops, cache_dir=tmp)
     c3_sched = config3_cylinder.schedule(c3_iv, C3_SHIFTS, C3_ADI)
     c3_sched12 = config3_cylinder.schedule(c3_iv, C3_MF_SHIFTS, C3_ADI)
-    spmm_head = spmm_phase(c3_ops, dev)
+    spmm_head = spmm_phase(c3_ops, fused_p, dev)
+    del fused_p
     mgs_head, mgs_err = mgs_phase(c3_sys64.n + c3_sys64.n_p,
                                   sys64.n + sys64.n_p, dev)
 
     # --- 8. NS stack at the bench shape ---------------------------------
-    spmm_err = bench_ns_phase(sys32, cache64, ks64, sig, sseq, iseq,
-                              (at_til, np_ops["M"], np_ops["J"]))
+    spmm_err = max(rollout_k2_err, bench_ns_phase(
+        sys32, cache64, ks64, sig, sseq, iseq,
+        (at_til, np_ops["M"], np_ops["J"])))
 
     # --- 11 (a). the matrix-free tier at the bench shape ------------------
     matfree_bench_phase(np_ops, cond, sys64, cache64, (sig, sseq, iseq), dev)

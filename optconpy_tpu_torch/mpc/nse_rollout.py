@@ -14,11 +14,13 @@ schemes, chosen at build time:
     joins the implicit block; only N(v)v - L1(vbar) v stays explicit;
   * oseen-cn: the trapezoid on the Oseen-linearized part with
     Adams-Bashforth-2 on the quadratic remainder (CNAB2).
-The fused tier (NSEFusedCache) pre-contracts the whole linear part of
-an Euler step on the host in f64 into two (n, n) matrices, so each step
-of a scenario batch is two GEMMs, the batched convection and a few
-tall-skinny products. Every loop keeps the batch last, (n, S), as the
-convection kernel reads and writes it.
+The fused tier (NSEFusedCache) pre-contracts the linear part of an
+Euler step on the host in f64 into the velocity block W of the saddle
+inverse and a pack of the sparse P = M/dt + L1, so each step of a
+scenario batch is one SpMM of P (the SpMM kernel), the batched
+convection, one (n, n) GEMM by W and a few tall-skinny products. Every
+loop keeps the batch last, (n, S), as the convection kernel reads and
+writes it.
 
 State convention: v is the FREE-dof velocity (Dirichlet values live in
 the ConvKernel); the feedback regulates the perturbation from the
@@ -45,9 +47,14 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
-from ..ops.spmm_kernel import pack_spmm, spmm
+from ..ops.spmm_kernel import SpmmPack, pack_spmm, spmm
 from ..solvers.saddle import SaddleInverse, SaddleLU
 from ..utils.profiling import span
+
+# Fused steps taken (batched_nse_closed_loop_fused), by the form of P:
+# through the SpMM kernel on the cache's pack, or through the dense pmat.
+fused_sparse_steps = 0
+fused_dense_steps = 0
 
 
 @dataclass(frozen=True)
@@ -237,6 +244,11 @@ class NSEFusedCache:
         v+ = pmat @ v + inv_vv @ (B u - N(v)v) + c0
     with pmat = inv_vv (M/dt + L1),  c0 = inv_vp fp - inv_vv fv,
     gmat = inv_vv B.
+
+    ppack, when set, packs the sparse P = M/dt + L1 (M/dt for the
+    explicit scheme) for the SpMM kernel, and the step computes
+    inv_vv @ (P v - N(v)v) instead of the two dense products; pmat stays
+    the reference's field.
     """
 
     pmat: torch.Tensor  # (n, n)
@@ -245,6 +257,7 @@ class NSEFusedCache:
     c0: torch.Tensor  # (n,)
     vbar: torch.Tensor  # (n,)
     dt: float  # baked into pmat/c0 at build time, checked at apply
+    ppack: SpmmPack | None = None  # P = M/dt + L1
 
     def to(self, device=None, dtype=None) -> "NSEFusedCache":
         def mv(x):
@@ -253,6 +266,7 @@ class NSEFusedCache:
         return NSEFusedCache(
             mv(self.pmat), mv(self.inv_vv), mv(self.gmat), mv(self.c0),
             mv(self.vbar), self.dt,
+            None if self.ppack is None else self.ppack.to(device, dtype),
         )
 
 
@@ -312,6 +326,7 @@ def build_nse_fused(
         c0=dev(inv_vp @ fp - inv_vv @ fv),
         vbar=dev(cond.restrict(np_ops["vbar_full"])),
         dt=float(dt),
+        ppack=pack_spmm(m_sp / dt + l1_sp, device=device, dtype=dtype),
     )
 
 
@@ -328,7 +343,10 @@ def batched_nse_closed_loop_fused(
     """Fused batched closed loop: a time loop with the whole scenario
     batch inside each step. The state is kept batch-last, (n, S), so
     the batch-last convection (conv.conv_inner_batch_t) reads and writes
-    it directly and each step's products are (n, n) @ (n, S) GEMMs.
+    it directly. A cache with a pack of P (cache.ppack) computes each
+    step's x0 = inv_vv (P v - N(v)v) with P v through the SpMM kernel and
+    one (n, n) @ (n, S) GEMM; one without it (built from arrays) takes
+    the two GEMMs pmat v - inv_vv N(v)v.
 
     ks: (nts+1, m, n) gains; ws: (nts+1, n) feedforward terms; v0_batch
     (S, n). feedback: 'explicit' applies u_k from v_k; 'implicit' solves
@@ -336,20 +354,29 @@ def batched_nse_closed_loop_fused(
     Returns scenario-major (vs (S, nts+1, n), us (S, nts, m),
     ys (S, nts+1, p)).
     """
+    global fused_sparse_steps, fused_dense_steps
     if feedback not in ("explicit", "implicit"):
         raise ValueError(f"unknown feedback mode: {feedback}")
     bt = sys.b.T
     vbar = cache.vbar[:, None]
     c0 = cache.c0[:, None]
     eye_m = torch.eye(sys.m_in, dtype=cache.gmat.dtype, device=vbar.device)
+    sparse = cache.ppack is not None
     v = v0_batch.T.contiguous()
     vs, us = [v], []
     for k_gain, w_k in zip(ks[:-1], ws[:-1]):
         with span("rollout.step"):
             uff = ((bt @ w_k) / alpha)[:, None]
-            # pmat v - inv_vv N(v)v, the second GEMM accumulating in place
-            x0 = cache.pmat @ v
-            x0.addmm_(cache.inv_vv, conv.conv_inner_batch_t(v), alpha=-1.0)
+            if sparse:  # inv_vv (P v - N(v)v)
+                r = spmm(cache.ppack, v)
+                r.sub_(conv.conv_inner_batch_t(v))
+                x0 = cache.inv_vv @ r
+                fused_sparse_steps += 1
+            else:  # pmat v - inv_vv N(v)v, the second GEMM in place
+                x0 = cache.pmat @ v
+                x0.addmm_(cache.inv_vv, conv.conv_inner_batch_t(v),
+                          alpha=-1.0)
+                fused_dense_steps += 1
             if feedback == "implicit":
                 x0 += c0 + cache.gmat @ (uff + k_gain @ vbar)
                 s_mat = eye_m + k_gain @ cache.gmat

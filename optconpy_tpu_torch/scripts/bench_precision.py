@@ -5,11 +5,11 @@ The bench's closed loop (cylinder wake Re=100, refinement 1, 1024
 scenarios x 64 steps, dt 0.005, alpha 1e-2; the t=0 gain of a 4-step DRE
 sweep at 6 shifts, 16 ADI iterations and rank 32, broadcast over every
 step, no feedforward) runs through the fused stepper, which launches the
-convection kernel once a step, under each tier of
+convection kernel and the SpMM kernel once a step, under each tier of
 utils/runtime.py::matmul_precision: 'highest' (strict FP32), 'high'
 (TF32) and 'default' (bf16-rounded operands with FP32 accumulation,
 the numerics of a 1-pass bf16 GEMM, emulated by strict FP32 GEMMs). The
-convection kernel computes in FP32 under every tier. Each tier's
+convection and SpMM kernels compute in FP32 under every tier. Each tier's
 outputs are compared with the 'highest' run and with an f64 run of the
 same recurrence on the host (4 scenarios), and its solves/s is the min
 of 3 warm synchronized runs; the 'default' tier is not timed, since its

@@ -54,7 +54,7 @@ class SolverConfig:
     # Forward-step solver tier:
     #   'lu'      triangular solves on one dense saddle factor;
     #   'inverse' host-built explicit inverse, one GEMM per solve;
-    #   'fused'   whole linear step pre-contracted into two GEMMs;
+    #   'fused'   linear step pre-contracted into one GEMM and one SpMM;
     #   'matfree' not in this package yet (optcont.py raises).
     step_solver: str = "lu"
     # Riccati (DRE) cache tier: 'auto' follows step_solver ('matfree'

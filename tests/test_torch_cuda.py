@@ -18,8 +18,11 @@ The driver's host-LU solvers apply their factors on the card with
 torch.linalg.lu_solve (1-based pivots): on the card they must match the
 same factors applied on the CPU to 1e-12 in f64, and the driven-cavity
 driver (tests/test_optcont_driver.py's CFG) on the card must match its
-CPU run to 1e-10. Its fused f32 run launches the convection kernel once
-a step; its Newton-Schulz gain tier launches the SpMM kernel.
+CPU run to 1e-10. Its fused f32 run launches the convection kernel and
+the SpMM kernel (the step's P = M/dt + L1) once a step; its
+Newton-Schulz gain tier launches the SpMM kernel besides. The fused
+step on the cylinder in f32, at the rollout's width (1024) and at 1,
+matches the dense form of the same cache (1e-5), K1 and K2 once a step.
 
 The matrix-free tier: FGMRES and SaddleMatfreeCache (f32 and f64, the
 cylinder's DRE pencil) and the reference-LU Krylov caches on the card
@@ -69,6 +72,10 @@ from optconpy_tpu_torch.models.cylinder import cylinder_setup
 from optconpy_tpu_torch.ops import conv_kernel, spmm_kernel
 from optconpy_tpu_torch.fem.dae import dae_from_scipy
 from optconpy_tpu_torch.models.cavity import cavity_stokes_setup
+from optconpy_tpu_torch.mpc import (
+    batched_nse_closed_loop_fused,
+    build_nse_fused,
+)
 from optconpy_tpu_torch.ops.dense import LUSolver
 from optconpy_tpu_torch.optcont import optcon_nse
 from optconpy_tpu_torch.solvers.saddle import SaddleLU
@@ -438,8 +445,67 @@ def test_fused_f32_driver_launches_kernels(gpu, tmp_path, dre_solver):
     conv0, spmm0 = conv_kernel.launches, spmm_kernel.launches
     res = optcon_nse(cfg, v0_batch=None, cache_dir=str(tmp_path), device=gpu)
     assert conv_kernel.launches - conv0 == cfg.time.nts
-    assert (spmm_kernel.launches - spmm0 > 0) == (dre_solver == "inverse_ns")
+    # the fused step applies P through K2 once a step, the NS gains more
+    k2 = spmm_kernel.launches - spmm0
+    assert (k2 > cfg.time.nts) if dre_solver == "inverse_ns" else (
+        k2 == cfg.time.nts)
     assert np.isfinite(res.ys).all() and np.isfinite(res.us).all()
+
+
+@pytest.fixture(scope="module")
+def fused_step(cylinder, card):
+    """The rollout cell's step on the card: the system, the convection
+    (K1 in f32, the plain slot sums in f64) and the fused cache with P
+    packed for K2, built in f64 and cast to f32."""
+    dev, np_ops, cond = cylinder
+    f32, f64 = torch.float32, torch.float64
+    sys64 = dae_from_scipy(np_ops["M"], np_ops["A"], np_ops["J"],
+                           np_ops["B"], np_ops["C"], device=dev, dtype=f64)
+    cache64 = build_nse_fused(np_ops, cond, DT, device=dev, dtype=f64)
+    conv64 = ConvKernel.build(np_ops["full"], cond, device=dev, dtype=f64)
+    return (dev, {f32: sys64.to(dtype=f32), f64: sys64},
+            {f32: card[1], f64: conv64},
+            {f32: cache64.to(dtype=f32), f64: cache64})
+
+
+@pytest.mark.parametrize("feedback", ["explicit", "implicit"])
+@pytest.mark.parametrize("b", [1024, 1])
+def test_fused_sparse_step_on_card_matches_dense_form(fused_step, b,
+                                                      feedback):
+    """16 f32 steps with P through K2 against the f64 dense form
+    (pmat v - inv_vv N(v)v): K1 and K2 once a step, the f32 dense form
+    no K2, states and outputs within f32 rounding: vs 3e-5 and ys 2e-6,
+    five times the CPU's readings of the f32 sparse form against f64 at
+    64 scenarios (vs 6.0e-6, ys 3.4e-7; the f32 dense form's: 3.0e-6 and
+    3.2e-7), and the rollout cell's y limit is 3e-5. The controls are
+    differences of nearby states, so the states' bound holds their
+    rounding."""
+    dev, sys, conv, cache = fused_step
+    f32, f64 = torch.float32, torch.float64
+    n, m = sys[f64].b.shape
+    nts = 16
+    gen = torch.Generator(dev).manual_seed(b)
+    v0 = cache[f64].vbar[None] + 1e-3 * torch.randn(
+        (b, n), generator=gen, device=dev, dtype=f64)
+    k0 = 1e-3 * torch.randn((m, n), generator=gen, device=dev, dtype=f64)
+
+    def run(dtype, dense):
+        c = replace(cache[dtype], ppack=None) if dense else cache[dtype]
+        ks = k0.to(dtype).expand(nts + 1, m, n)
+        ws = torch.zeros((nts + 1, n), dtype=dtype, device=dev)
+        return batched_nse_closed_loop_fused(
+            sys[dtype], conv[dtype], c, ks, ws, v0.to(dtype), 1e-2, feedback)
+
+    k1, k2 = conv_kernel.launches, spmm_kernel.launches
+    got = run(f32, dense=False)
+    assert (conv_kernel.launches - k1, spmm_kernel.launches - k2) == (nts, nts)
+    dense32 = run(f32, dense=True)
+    assert spmm_kernel.launches - k2 == nts
+    ref = run(f64, dense=True)
+    for name, i, tol in (("vs", 0, 3e-5), ("ys", 2, 2e-6)):
+        assert bool(torch.isfinite(got[i]).all()), name
+        err, err_dense = (_rel(x[i].double(), ref[i]) for x in (got, dense32))
+        assert err <= tol, (name, err, err_dense)
 
 
 # --- the matrix-free tier and the quadrature convection on the card --------
