@@ -26,6 +26,11 @@ from ..ops.dense import (
     to_host64,
 )
 from ..ops.lowrank import smw_solve
+from ..utils.profiling import span
+
+# Counter (utils/profiling.py lists its metric): the velocity-block
+# inverses SaddleShiftedInverseCache.solve applied.
+inverse_applies = 0
 
 
 def solve_sadpnt_scipy(a_sp, j_sp, rhs_v, rhs_p=None):
@@ -293,8 +298,12 @@ class SaddleShiftedInverseCache:
 
     def solve(self, i: int, rhs: torch.Tensor) -> torch.Tensor:
         """Velocity block of the i-th shifted saddle solve; rhs (n,) or
-        (n, k)."""
-        return self.inv[i][: self.n, : self.n] @ rhs
+        (n, k). One apply of the block: one GEMM (GEMV for a vector)."""
+        global inverse_applies
+
+        inverse_applies += 1
+        with span("inverse.solve"):
+            return self.inv[i][: self.n, : self.n] @ rhs
 
     def solve_smw(self, i: int, u: torch.Tensor, v: torch.Tensor,
                   rhs: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,9 @@ check. A span never synchronizes or reads the device. The names are
   matfree.precond       its block-Jacobi and pressure-Schur
                         preconditioner
   lowrank.compress      ops/lowrank.py::compress, a call
+  inverse.solve         solvers/saddle.py::SaddleShiftedInverseCache.solve,
+                        one apply of a dense velocity-block inverse
+                        (the dense-inverse DRE tier's GEMM)
   rollout.call          mpc/nse_rollout.py::batched_nse_closed_loop, a
                         call (one control step at B=1)
   rollout.step          a time step of the fused closed loop
@@ -47,7 +50,8 @@ benchmark's readers, cudabench/metrics/, take ratios of them):
       above tol at max_cycles)
   riccati/lyap_adi.py
     adi_iterations                 krylov.host_reads_per_adi.gains,
-                                   krylov.mgs_launches_per_adi.gains
+                                   krylov.mgs_launches_per_adi.gains,
+                                   ns_dre.inverse_reads_per_adi.gains_ns
   utils/profiling.py
     host_reads                     krylov.host_reads_per_adi.gains
   solvers/ns_inverse.py
@@ -64,6 +68,10 @@ benchmark's readers, cudabench/metrics/, take ratios of them):
       memory)                      krylov.mgs_launches_per_adi.gains
     launches_one_cluster (the launches whose grid was one cluster)
                                    krylov.mgs_one_cluster_share.gains
+  solvers/saddle.py
+    inverse_applies (SaddleShiftedInverseCache.solve calls)
+                                   ns_dre.inverse_reads_per_adi.gains_ns
+                                   (over lyap_adi.adi_iterations)
   parallel/param_sweep.py
     layout_real_columns, layout_padded_columns (the scenario-columns
       sweep_layout gives real scenarios and padding)
@@ -74,8 +82,9 @@ three functions that make the matrix-free DRE path's reads on CUDA:
 solvers/krylov.py::fgmres (its residual, once a restart cycle), and
 ops/lowrank.py's smw_solve (torch.linalg.solve checks the capacitance
 solve on the host) and compress (the SVD checks its result on the
-host). They count whichever path calls them, on any device; the DRE
-benchmark cell runs the matrix-free path alone.
+host). They count whichever path calls them, on any device; each DRE
+cell runs one tier alone, and the dense-inverse tier reads only in
+smw_solve and compress.
 """
 from __future__ import annotations
 
@@ -95,6 +104,7 @@ SPANS = (
     "matfree.apply",
     "matfree.precond",
     "lowrank.compress",
+    "inverse.solve",
     "rollout.call",
     "rollout.step",
     "sweep.call",
